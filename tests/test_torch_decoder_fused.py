@@ -102,8 +102,31 @@ def test_decode_window_ref_matches_pallas_window(ratio, window):
     got = tk.decode_window_fwd_ref(torch.from_numpy(z), tsyn, rows, cols, tp)
     assert got.shape == want.shape == (b, r_hi - r_lo, c_hi - c_lo, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
-    disp = tk.decode_window_fwd(torch.from_numpy(z), tsyn, rows, cols, tp)
+    disp = tk.decode_window_fwd(torch.from_numpy(z), tsyn,
+                                tk.index_vector(rows, h_in, "cpu"),
+                                tk.index_vector(cols, w_in, "cpu"), tp)
     np.testing.assert_array_equal(disp.numpy(), got.numpy())
+
+
+def test_window_wrappers_take_index_vectors_only():
+    """``index_vector`` checks the host indices once; the window wrappers
+    take only its int32 tensors on z's device."""
+    z, p = _inputs(1, 4, 4, seed=0)
+    tz, tp = torch.from_numpy(z), _port_params(p)
+    syn = tgrids.syn_input_grid((4, 4), (8, 8))
+    with pytest.raises(ValueError, match="indices out of"):
+        tk.index_vector(np.array([0, 4]), 4, "cpu")
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tk.index_vector(np.array([1, 0]), 4, "cpu")
+    rows = tk.index_vector(np.arange(8) // 2, 4, "cpu")
+    assert rows.dtype == torch.int32 and rows.tolist() == [0, 0, 1, 1, 2,
+                                                           2, 3, 3]
+    g = torch.zeros((1, 8, 8, 3))
+    for bad in (np.arange(8) // 2, rows.long(), rows[::2]):
+        with pytest.raises(ValueError, match="cols must be a 1-D"):
+            tk.decode_window_fwd(tz, syn, rows, bad, tp)
+        with pytest.raises(ValueError, match="rows must be a 1-D"):
+            tk.decode_window_bwd(tz, syn, bad, rows, tp, g)
 
 
 def test_pack_params_layout():

@@ -91,21 +91,28 @@ def test_exact_sin_decoder_matches_jax():
 @pytest.mark.parametrize("out_hw", [(20, 24), (22, 28)])
 def test_grad_recording_keeps_the_fused_route(out_hw):
     """Autograd does not change the route: with gradients recorded, the
-    fused decoder still runs (its plain version on the CPU) and gives the
-    no-grad output, and a backward through it raises, since its backward
-    kernels are not ported yet. ``use_fused=False`` takes gradients."""
+    fused decoder still runs (its plain versions on the CPU), gives the
+    no-grad output, and its backward (several window nodes at bsize 60 for
+    x3.14; one integer-ratio node for x4) gives the gradients that
+    ``use_fused=False`` takes through ``hr_step``, within atol 1e-5 (fp32,
+    another summation order)."""
     gen = torch.Generator().manual_seed(0)
     tnet = DIINN(mode=3, encoder_spec="rdn-tiny", hidden_dims=(32,) * 4,
                  generator=gen).eval()
     x = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (1, 5, 6, 3)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, *out_hw, 3)).astype(np.float32))
     with torch.no_grad():
         want = tnet(x, out_hw, 60)
     got = tnet(x, out_hw, 60)
     assert got.requires_grad
     assert torch.equal(got.detach(), want)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        got.sum().backward()
+    (got * g).sum().backward()
+    fused = {k: p.grad.clone() for k, p in tnet.named_parameters()}
+    tnet.zero_grad()
     tnet.decoder.use_fused = False
-    tnet(x, out_hw, 60).sum().backward()
-    assert tnet.decoder.q1.dense.weight.grad is not None
+    (tnet(x, out_hw, 60) * g).sum().backward()
+    for k, p in tnet.named_parameters():
+        np.testing.assert_allclose(fused[k].numpy(), p.grad.numpy(),
+                                   rtol=0, atol=1e-5, err_msg=k)

@@ -1,10 +1,21 @@
-"""SR datasets: benchmark directory layout, full-image eval samples.
+"""SR datasets: DIV2K / benchmark directory layouts, on-the-fly downsampling.
 
-Counterpart of ``tpu_diinn/data/datasets.py`` on its eval path:
-``SRDatasetDownsample`` with ``patch_size=0`` and no augmentation yields
-each HR image with ``lr = resize(hr, round(H/s))`` per scale (the numpy
-antialiased bicubic). Training patches, augmentation and the native C++
-loader come with the training slice (ROADMAP).
+Counterpart of ``tpu_diinn/data/datasets.py`` on its numpy path:
+
+- ``SRDatasetDownsample``: per item and scale, a random HR crop of
+  ``round(patch_size * scale)`` antialias-bicubic-downsampled to
+  ``patch_size`` (training), or the full image with ``lr = resize(hr,
+  round(H / s))`` (``patch_size=0``, eval); augmentation is a shared random
+  h/v flip and transpose. Random numbers come from the per-sample
+  ``numpy.random.Generator`` the caller passes, drawn in the JAX numpy
+  path's order (top, left, then the three flips), so both packages make
+  the same samples byte for byte.
+- ``Subset`` and ``ConcatDataset``, the index views the trainer composes.
+- ``SyntheticSRDataset``: deterministic random images for runs without
+  DIV2K on disk.
+
+The JAX package's native C++ loader is not ported yet (ROADMAP); its
+numpy fallback, which it documents as giving identical samples, is.
 """
 
 from __future__ import annotations
@@ -12,7 +23,7 @@ from __future__ import annotations
 import glob
 import os
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,12 +46,56 @@ DATASET_DIR_STRUCTURE = {
 Sample = Dict[float, Tuple[np.ndarray, np.ndarray, str]]
 
 
+def _augment(imgs: List[np.ndarray], rng: np.random.Generator
+             ) -> List[np.ndarray]:
+    hflip, vflip, dflip = rng.random(3) < 0.5
+    out = []
+    for x in imgs:
+        if hflip:
+            x = x[::-1, :, :]
+        if vflip:
+            x = x[:, ::-1, :]
+        if dflip:
+            x = np.transpose(x, (1, 0, 2))
+        out.append(np.ascontiguousarray(x))
+    return out
+
+
+def _get_patch(hr: np.ndarray, scale: float, patch_size: int,
+               rng: Optional[np.random.Generator]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    if patch_size == 0:
+        size = resize_by_scale_size(hr.shape[:2], scale)
+        lr = resize_np(hr.astype(np.float32), size)
+        return lr, hr.astype(np.float32)
+    hps = int(round(patch_size * scale))
+    top = int(rng.integers(0, hr.shape[0] - hps + 1))
+    left = int(rng.integers(0, hr.shape[1] - hps + 1))
+    crop = hr[top:top + hps, left:left + hps].astype(np.float32)
+    lr = resize_np(crop, (patch_size, patch_size))
+    return lr, crop
+
+
+def _samples(hr_img: np.ndarray, scales, patch_size: int, augment: bool,
+             rng: Optional[np.random.Generator], name: str) -> Sample:
+    out: Sample = {}
+    for scale in scales:
+        lr, hr = _get_patch(hr_img, scale, patch_size, rng)
+        if augment:
+            lr, hr = _augment([lr, hr], rng)
+        out[scale] = (lr / 255.0, hr / 255.0, name)
+    return out
+
+
 class SRDatasetDownsample:
-    """Full-image LR generation from HR images (eval only)."""
+    """On-the-fly LR generation from the HR images of one directory."""
 
     def __init__(self, root: str = "./data/", name: str = "DIV2K",
-                 split: str = "train", scales: Sequence[float] = (2,)):
+                 split: str = "train", scales: Sequence[float] = (2,),
+                 patch_size: int = 96, augment: bool = True):
         self.scales = list(scales)
+        self.patch_size = patch_size
+        self.augment = augment
         layout = DATASET_DIR_STRUCTURE[name].get(split) \
             if name == "benchmark" else DATASET_DIR_STRUCTURE[name][split]
         if layout is None:
@@ -52,21 +107,14 @@ class SRDatasetDownsample:
     def __len__(self) -> int:
         return len(self.names_hr)
 
-    def get_patch(self, hr: np.ndarray, scale: float
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-        size = resize_by_scale_size(hr.shape[:2], scale)
-        lr = resize_np(hr.astype(np.float32), size)
-        return lr, hr.astype(np.float32)
-
-    def sample(self, idx: int) -> Sample:
+    def sample(self, idx: int,
+               rng: Optional[np.random.Generator] = None) -> Sample:
+        """{scale: (lr, hr, name)} in [0, 1]; ``rng`` is needed for
+        patches and augmentation."""
         path = self.names_hr[idx]
         name = os.path.splitext(os.path.basename(path))[0]
-        hr_img = read_png(path)
-        out: Sample = {}
-        for scale in self.scales:
-            lr, hr = self.get_patch(hr_img, scale)
-            out[scale] = (lr / 255.0, hr / 255.0, name)
-        return out
+        return _samples(read_png(path), self.scales, self.patch_size,
+                        self.augment, rng, name)
 
 
 class Subset:
@@ -79,5 +127,51 @@ class Subset:
     def __len__(self):
         return len(self.indices)
 
-    def sample(self, idx):
-        return self.dataset.sample(self.indices[idx])
+    def sample(self, idx, rng=None):
+        return self.dataset.sample(self.indices[idx], rng)
+
+
+class ConcatDataset:
+    """Sequential concatenation of datasets."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def sample(self, idx, rng=None):
+        k = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.datasets[k].sample(idx - int(self._offsets[k]), rng)
+
+
+class SyntheticSRDataset:
+    """Deterministic random-image dataset (no files needed)."""
+
+    def __init__(self, n_images: int = 16, image_size: int = 256,
+                 scales: Sequence[float] = (2, 3, 4), patch_size: int = 48,
+                 augment: bool = True, seed: int = 0):
+        self.n = n_images
+        self.image_size = image_size
+        self.scales = list(scales)
+        self.patch_size = patch_size
+        self.augment = augment
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def _image(self, idx: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 100003 + idx)
+        s = self.image_size
+        # smooth-ish random image: low-res noise upsampled + fine noise
+        base = rng.random((s // 8, s // 8, 3)).astype(np.float32)
+        img = resize_np(base, (s, s))
+        img = img + 0.1 * rng.standard_normal((s, s, 3)).astype(np.float32)
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    def sample(self, idx: int,
+               rng: Optional[np.random.Generator] = None) -> Sample:
+        return _samples(self._image(idx), self.scales, self.patch_size,
+                        self.augment, rng, f"synthetic_{idx:04d}")

@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels: plain ``nvcc`` + ``ctypes``.
 
-At first use, ``load("decoder_fused")`` compiles ``csrc/decoder_fused.cu``
-into ``build/tpu_diinn_torch/<sha1 of the sources>/libdecoder_fused.so``
-under the checkout root, with
+At first use, ``load(name)`` compiles ``csrc/<name>.cu`` into
+``build/tpu_diinn_torch/<sha1 of the sources>/lib<name>.so`` under the
+checkout root, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-and loads it with ``ctypes``. The sources include no PyTorch header, so the
-build takes seconds. A build error raises with nvcc's output; there is no
-fallback. Nothing here runs at import time.
+and loads it with ``ctypes``. The sources include no PyTorch header, so a
+build takes seconds; ``load_all`` starts one nvcc per library, all at once.
+A build error raises with nvcc's output; there is no fallback. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -31,6 +33,8 @@ BUILD_ROOT = _PKG.parent / "build" / "tpu_diinn_torch"
 # library name -> (compiled source, headers it includes)
 SOURCES = {
     "decoder_fused": ("decoder_fused.cu", ("decoder_fused.cuh",)),
+    "decoder_bwd": ("decoder_bwd.cu", ("decoder_bwd.cuh",
+                                       "decoder_fused.cuh")),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -84,6 +88,14 @@ def build(name: str) -> Path:
     os.replace(tmp, out)
     build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
     return out
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Every library of ``SOURCES``, built in parallel where needed."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        for f in [pool.submit(build, name) for name in SOURCES]:
+            f.result()
+    return {name: load(name) for name in SOURCES}
 
 
 def load(name: str) -> ctypes.CDLL:

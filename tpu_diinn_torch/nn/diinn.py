@@ -15,9 +15,9 @@ relu(kq_i(q) + z_i) (modes 3, 4).
 
 Routing mirrors the JAX ``__call__`` and is decided once per ``forward``.
 ``_fused_ok`` (configuration only) picks the fused decoder
-(``kernels/decoder_fused.py``: the CUDA kernels for a CUDA tensor, their
-plain versions on the CPU; forward only, a backward through it raises) or
-the eager ``hr_step``. Without ``bsize``, and for integer ratios (s <= 16)
+(``kernels/decoder_fused.decode``: the CUDA forward and backward kernels
+for a CUDA tensor, their plain versions on the CPU) or the eager
+``hr_step``. Without ``bsize``, and for integer ratios (s <= 16)
 on the fused decoder, the whole grid decodes at once; any other ``bsize``
 decode runs serial column chunks of ``bsize // H_out`` columns (the
 reference ``batched_step``; mode 4's window-local output conv depends on
@@ -94,7 +94,7 @@ class ImplicitDecoder(nn.Module):
 
         - mode 3 with the polynomial sine and uniform hidden widths (the
           chain the kernels compute);
-        - hidden in ``KERNEL_HIDDEN`` (32, 64, 128, 256): each lane of a
+        - hidden in ``KERNEL_HIDDEN`` (32, 64, 256): each lane of a
           warp owns hidden/32 columns, a register tile sized at compile
           time;
         - fp32 features (the kernels are fp32 only).
@@ -172,16 +172,14 @@ class ImplicitDecoder(nn.Module):
             if (rem_h == 0 and rem_w == 0
                     and 1 <= s_h <= kern.MAX_INT_RATIO
                     and 1 <= s_w <= kern.MAX_INT_RATIO):
-                return kern.forward_only(
-                    lambda z_, p: kern.decode_int_fwd(z_, syn, s_h, s_w, p),
-                    z, params)
+                return kern.decode(z, syn, params, ratio=(s_h, s_w))
+            # index vectors uploaded once; each chunk reads a view of them
+            rows_v = kern.index_vector(rows, h_in, feat.device)
+            cols_v = kern.index_vector(cols, w_in, feat.device)
 
             def decode(lo, hi):
-                syn_w = syn[:, lo:hi].contiguous()
-                return kern.forward_only(
-                    lambda z_, p: kern.decode_window_fwd(z_, syn_w, rows,
-                                                         cols[lo:hi], p),
-                    z, params)
+                return kern.decode(z, syn[:, lo:hi].contiguous(), params,
+                                   rows=rows_v, cols=cols_v[lo:hi])
         else:
             zs = self.lr_features(feat)
 

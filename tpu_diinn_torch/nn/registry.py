@@ -40,11 +40,12 @@ def make_encoder(spec: str, *,
 def make_net(arch: str, *, mode: int = 3, init_q: bool = False,
              encoder_spec: str = "rdn",
              hidden_dims: Optional[Sequence[int]] = None,
-             use_fused: Optional[bool] = None) -> nn.Module:
+             use_fused: Optional[bool] = None,
+             generator: Optional[torch.Generator] = None) -> nn.Module:
     from tpu_diinn_torch.nn.diinn import DIINN
     if arch == "diinn":
         kw = dict(mode=mode, init_q=init_q, encoder_spec=encoder_spec,
-                  use_fused=use_fused)
+                  use_fused=use_fused, generator=generator)
         if hidden_dims is not None:
             kw["hidden_dims"] = tuple(hidden_dims)
         return DIINN(**kw)
