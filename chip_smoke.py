@@ -9,11 +9,17 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA versions;
 2. build: the CUDA kernel libraries with plain ``nvcc``, one process per
    library, all started together (content-addressed under
-   ``build/tpu_diinn_torch/``);
+   ``build/tpu_diinn_torch/``), with ``ptxas`` registers and spills and,
+   from ``cuobjdump -sass``, each kernel's count of tensor-core (``HMMA``,
+   ``HGMMA``) and fp32 ``FFMA`` instructions; the backward's chain and
+   weight-gradient kernels must show tensor-core instructions;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
    on main-path shapes, held against their plain PyTorch versions (max abs
    error <= 1e-4: fp32 sums in another order over K <= 512), with time,
-   plain time and bound;
+   plain time and two bounds: ``bound_ms`` with the products at the fp32
+   FFMA rate, ``bound_tc_ms`` with them on the tensor cores in 3xTF32
+   (three TF32 products per fp32-accurate product), each against the
+   bytes at the HBM rate;
 3b. training kernels at flagship widths and the training shapes (B = 4,
    LR 48x48): ``decode_int_fwd`` and ``decode_int_bwd`` at x2, x3, x4,
    ``decode_window_fwd`` and ``decode_window_bwd`` at 48 -> 120 (x2.5),
@@ -22,8 +28,9 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    <= 1e-4 of the plain version's largest magnitude, with the upstream
    gradient zeroed on the queries whose relu pre-activations come within
    1e-5 of zero (``relu_margin``: there two correct fp32 implementations
-   may take different sides of the mask). A second call must agree bit
-   for bit (the weight-gradient sum is deterministic);
+   may take different sides of the mask). The backward's products run in
+   3xTF32 on the tensor cores, which keeps this fp32 tolerance. A second
+   call must agree bit for bit (the weight-gradient sum is deterministic);
 4. slice, eval: the flagship benchmark evaluation through the benchmark
    CLI's ``main`` (4 sets x scales {3.14, 4, 8}); both forward kernels
    must have been launched, and all 36 metrics must match the committed
@@ -52,7 +59,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       the next batch;
    c. ``cli.train``'s ``main`` at scales [2, 2.5]: 5 steps, each launching
       the window kernels once, finite losses;
-6. a ``kernels`` JSON line, and last the device JSON line.
+6. a ``kernels`` JSON line (each row with its times at every training
+   shape under ``train_shapes``), and last the device JSON line.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA it
 exits non-zero before printing any result.
@@ -63,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -119,11 +128,13 @@ def phase(label: str, t_start: float, **fields) -> None:
 
 
 def card_peaks(name: str) -> tuple:
-    """(fp32 non-tensor FLOP/s, HBM bytes/s, which SKU) from NVIDIA's data
-    sheets, dense rates at the full power limit."""
+    """(fp32 non-tensor FLOP/s, HBM bytes/s, TF32 tensor-core FLOP/s, which
+    SKU) from NVIDIA's data sheets, dense rates at the full power limit."""
     if "PCIe" in name:
-        return 51.2e12, 2.0e12, "H100 PCIe: 51.2 TFLOP/s fp32, 2.0 TB/s"
-    return 67.0e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s"
+        return (51.2e12, 2.0e12, 378e12,
+                "H100 PCIe: 51.2 TFLOP/s fp32, 378 TF32, 2.0 TB/s")
+    return (67.0e12, 3.35e12, 495e12,
+            "H100 SXM: 67 TFLOP/s fp32, 495 TF32, 3.35 TB/s")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -207,10 +218,47 @@ def query_flop_bwd(hidden: int, n_layers: int) -> int:
 
 
 def bound(flop: float, nbytes: float, peaks) -> dict:
+    """The least time for the work: its matmul FLOP at the fp32 FFMA rate
+    (``bound_ms``) or, for fp32-accurate products on the tensor cores,
+    three TF32 products each (``bound_tc_ms``), against its bytes at the
+    HBM rate, whichever is larger."""
     t_ops = flop / peaks[0] * 1e3
     t_bytes = nbytes / peaks[1] * 1e3
+    t_tc = 3 * flop / peaks[2] * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": max(t_tc, t_bytes)}
+
+
+def sass_counts(lib: Path) -> dict:
+    """Per kernel of a built library, its count of tensor-core (HMMA,
+    HGMMA) and fp32 FFMA instructions, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"cuobjdump": "not found: no instruction counts"}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :")[1].strip())
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
+def kernel_name(mangled: str) -> str:
+    """``decode_bwd_chain_kernel<8,0>`` from its mangled name."""
+    m = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[a-z]+\d+E)+E)?)",
+                  mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[a-z]+(\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def check_fwd(name, fn, ref, n_query, nbytes, peaks, shape,
@@ -693,7 +741,7 @@ def main() -> int:
     phase("device", t, nvidia_smi=smi, kind=kind,
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0],
-          peaks=peaks[2])
+          peaks=peaks[3])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -704,9 +752,18 @@ def main() -> int:
     for name, info in build.build_info.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
+        sass = sass_counts(build.library_path(name))
+        if name == "decoder_bwd" and "cuobjdump" not in sass:
+            for kern in ("decode_bwd_chain_kernel", "wgrad_kernel"):
+                tc = [v["HMMA"] + v["HGMMA"] for k, v in sass.items()
+                      if k.startswith(kern)]
+                if not tc or min(tc) == 0:
+                    raise AssertionError(f"{kern}: no tensor-core "
+                                         f"instructions: {sass}")
         phase("build", t, library=name,
               nvcc_seconds=round(info["seconds"], 3),
-              path=str(build.library_path(name)), ptxas=regs)
+              path=str(build.library_path(name)), ptxas=regs,
+              sass_counts=sass)
 
     # 3) and 3b) kernels against their plain versions
     t = time.perf_counter()
@@ -737,14 +794,19 @@ def main() -> int:
                                rs + checks.get(f"{name}_train", [])),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bound_tc_ms": first["bound_tc_ms"],
             "library_ms": None, "shape": first["shape"],
             "achieved_tflops": first["achieved_tflops"]}
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_tc_ms", "achieved_tflops", "max_abs_err")
         if name in FWD:
+            entry["train_shapes"] = [{k: r[k] for k in keys}
+                                     for r in checks[f"{name}_train"]]
+        else:
             entry["train_shapes"] = [
-                {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "achieved_tflops",
-                                   "max_abs_err")}
-                for r in checks[f"{name}_train"]]
+                {**{k: r[k] for k in keys},
+                 "ms_by_device_kernel": r["ms_by_device_kernel"]}
+                for r in rs]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

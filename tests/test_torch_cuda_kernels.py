@@ -142,15 +142,43 @@ def test_decode_window_bwd_matches_plain(hidden, b, window):
     _assert_bwd_close(got, K.decode_window_bwd_ref(z, syn, rows, cols, p, g))
 
 
-def test_decode_int_bwd_is_deterministic():
-    """The weight-gradient reduction sums fixed splits in a fixed order:
-    two calls on the same inputs agree bit for bit (9,216 queries, three
-    splits)."""
-    z, syn, _, _, p, g = _bwd_case(64, 3, 1, (24, 24), (96, 96), None, 7)
-    a = K.decode_int_bwd(z, syn, 4, 4, p, g)
-    b = K.decode_int_bwd(z, syn, 4, 4, p, g)
+def test_decode_window_bwd_flagship_width_matches_plain():
+    """Hidden 256, L = 4 at x2.5 (LR 16x14 -> 40x35, B 2: 2,800 queries,
+    two weight-gradient splits), the flagship's fractional training
+    route."""
+    z, syn, rows, cols, p, g = _bwd_case(256, 4, 2, (16, 14), (40, 35),
+                                         None, 11)
+    before = K.launches["decode_window_bwd"]
+    got = K.decode_window_bwd(z, syn, K.index_vector(rows, 16, z.device),
+                              K.index_vector(cols, 14, z.device), p, g)
+    torch.cuda.synchronize()
+    assert K.launches["decode_window_bwd"] == before + 1
+    _assert_bwd_close(got, K.decode_window_bwd_ref(z, syn, rows, cols, p, g))
+
+
+def _assert_equal_calls(call):
+    a = call()
+    b = call()
     assert torch.equal(a[0], b[0])
     assert all(torch.equal(a[1][k], b[1][k]) for k in K.PARAM_KEYS)
+
+
+def test_decode_int_bwd_is_deterministic():
+    """The weight-gradient reduction sums fixed splits in a fixed order:
+    two calls on the same inputs agree bit for bit (9,216 queries, five
+    splits)."""
+    z, syn, _, _, p, g = _bwd_case(64, 3, 1, (24, 24), (96, 96), None, 7)
+    _assert_equal_calls(lambda: K.decode_int_bwd(z, syn, 4, 4, p, g))
+
+
+def test_decode_window_bwd_is_deterministic():
+    """As for the integer route, at x2.5 (LR 24 -> 60, B 2: 7,200 queries,
+    four splits)."""
+    z, syn, rows, cols, p, g = _bwd_case(64, 3, 2, (24, 24), (60, 60), None,
+                                         8)
+    rv = K.index_vector(rows, 24, z.device)
+    cv = K.index_vector(cols, 24, z.device)
+    _assert_equal_calls(lambda: K.decode_window_bwd(z, syn, rv, cv, p, g))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -183,3 +183,85 @@ def test_decode_node_returns_the_plain_backward():
     dz, grads = tk.decode_int_bwd_ref(z, syn, 2, 2, p, g)
     assert torch.equal(zg.grad, dz)
     assert all(torch.equal(pg[k].grad, grads[k]) for k in tk.PARAM_KEYS)
+
+
+# -- the backward kernels' 3xTF32 weight split (wrapper side, CPU) ---------
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 tensor-core product reads of an fp32 operand: its top
+    19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((3, 64, 96), generator=g) * torch.logspace(-30, 30, 96)
+    w[0, 0, :4] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -11, -(1 + 2 ** -11)])
+    hi, lo = tk.tf32_split(w)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(hi + lo, w)
+    # nearest: |lo| at most half a TF32 ulp (2^-11 relative); ties away
+    assert bool((lo.abs() <= w.abs() * 2.0 ** -11).all())
+    assert hi[0, 0, 2].item() == 1.0 + 2.0 ** -10
+    assert hi[0, 0, 3].item() == -(1.0 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("h", [32, 64, 256])
+def test_chain_b_operands_columns(h):
+    """Warpgroup wg owns hidden columns [wg h/2, (wg + 1) h/2): forward
+    pass p reads the k and then the a column of each of its jb columns
+    from wg h/2 + p jb; dq reads [Wkq | Wq]^T's columns of the same j."""
+    wcat = torch.arange(h * 2 * h, dtype=torch.float32).reshape(
+        1, h, 2 * h)
+    fwd, dq = tk.chain_b_operands(wcat)
+    passes = fwd.shape[2]
+    jb = h // 2 // passes
+    assert fwd.shape == (1, h, passes, 2, 2 * jb)
+    assert dq.shape == (1, 2 * h, 1, 2, h // 2)
+    for p in range(passes):
+        for wg in range(2):
+            j = [wg * h // 2 + p * jb + c for c in range(jb)]
+            assert torch.equal(fwd[:, :, p, wg], wcat[:, :, j + [h + c
+                                                             for c in j]])
+            assert torch.equal(dq[:, :, 0, wg],
+                               wcat.transpose(1, 2)[:, :, wg * h // 2:
+                                                    (wg + 1) * h // 2])
+
+
+def test_mma_b_slabs_layout():
+    """Slab (layer, pass p, k8 step s, warpgroup wg) holds hi then lo;
+    element (k = 8s + 4h + c, column 8g + r) at [g, h, r, c]."""
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn((2, 16, 1, 2, 32), generator=g)
+    hi, lo = tk.tf32_split(w)
+    x = tk.mma_b_slabs(w)
+    assert x.shape == (2, 1, 2, 2, 2, 4, 2, 8, 4) and x.is_contiguous()
+    gg, hh, r, c = torch.meshgrid(*(torch.arange(n) for n in (4, 2, 8, 4)),
+                                  indexing="ij")
+    for s in range(2):
+        for wg in range(2):
+            k = 8 * s + 4 * hh + c
+            n = 8 * gg + r
+            for part, want in enumerate((hi, lo)):
+                assert torch.equal(x[:, 0, s, wg, part],
+                                   want[:, k, 0, wg, n])
+
+
+def test_3xtf32_product_keeps_fp32_error():
+    """a_lo b_hi + a_hi b_lo + a_hi b_hi with operands read as TF32 (the
+    kernels' scheme) against the float64 product: fp32-level error, where
+    one TF32 product (a_hi b_hi) is about 1e-3 off."""
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn((64, 256), generator=g)
+    w = torch.randn((256, 96), generator=g) / 16
+    exact = a.double() @ w.double()
+    ah, al = tk.tf32_split(a)
+    wh, wl = tk.tf32_split(w)
+
+    def prod(x, y):
+        return _tf32_trunc(x).double() @ _tf32_trunc(y).double()
+
+    three = prod(al, wh) + prod(ah, wl) + prod(ah, wh)
+    scale = exact.abs().max().item()
+    assert (three - exact).abs().max().item() <= 1e-6 * scale
+    assert (prod(ah, wh) - exact).abs().max().item() > 1e-4 * scale

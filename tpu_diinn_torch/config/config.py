@@ -4,14 +4,15 @@ Counterpart of ``tpu_diinn/config/config.py`` with the same defaults, minus
 YAML: the flagship's configuration travels as JSON inside the weights
 export (``__meta__`` of the ``.npz``), so a config is built from defaults,
 an optional nested dict and ``a.b.c=value`` overrides. Override values for
-list/None fields are parsed with ``json.loads``, falling back to the raw
-string.
+list/None fields are read as the JAX package's ``yaml.safe_load`` reads a
+plain scalar or a flow list (YAML 1.1 booleans and nulls, integers, floats,
+``[a, b]``), without PyYAML; any other string stays as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
+import re
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -92,11 +93,83 @@ def _coerce(value: str, current: Any) -> Any:
     if isinstance(current, float):
         return float(value)
     if isinstance(current, (list, tuple)) or current is None:
-        try:
-            return json.loads(value)
-        except json.JSONDecodeError:
-            return value
+        return _yaml_value(value)
     return value
+
+
+# PyYAML's implicit resolvers (YAML 1.1) for the scalars an override holds.
+_BOOL = {v: v.lower() in ("yes", "true", "on") for w in
+         ("yes", "no", "true", "false", "on", "off")
+         for v in (w, w.title(), w.upper())}
+_NULL = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|(?:0|[1-9][0-9_]*)"
+                  r"|0x[0-9a-fA-F_]+)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+
+
+def _yaml_value(text: str) -> Any:
+    """``yaml.safe_load(text)`` for a plain scalar or a flow list of them;
+    the text itself for anything else."""
+    s = text.strip()
+    if s.startswith("[") and s.endswith("]"):
+        items = _split_flow(s[1:-1])
+        if items is not None:
+            return [_yaml_value(v) for v in items]
+        return text
+    return _yaml_scalar(s)
+
+
+def _split_flow(body: str):
+    """The top-level comma-separated items of a flow list's body (one
+    trailing comma allowed), or None where YAML would refuse it."""
+    items, depth, quote, start = [], 0, None, 0
+    for i, ch in enumerate(body):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth -= 1
+            if depth < 0:
+                return None
+        elif ch == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    if body[start:].strip():
+        items.append(body[start:])
+    if depth or quote or not all(v.strip() for v in items):
+        return None
+    return items
+
+
+def _yaml_scalar(s: str) -> Any:
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    if s in _NULL:
+        return None
+    if s in _BOOL:
+        return _BOOL[s]
+    if _INT.fullmatch(s):
+        v = s.replace("_", "")
+        sign = -1 if v[0] == "-" else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if v != "0" and v.startswith("0"):
+            return sign * int(v, 8)
+        return sign * int(v)
+    if _FLOAT.fullmatch(s):
+        v = s.replace("_", "").lower()
+        if v.endswith((".inf", ".nan")):
+            return float(v.replace(".", ""))
+        return float(v)
+    return s
 
 
 def _merge(dc: Any, tree: dict) -> None:

@@ -1,4 +1,5 @@
-// Fused DIINN mode-3 decoder backward for Hopper (sm_90a), fp32.
+// Fused DIINN mode-3 decoder backward for Hopper (sm_90a): fp32 accuracy
+// from 3xTF32 tensor-core products.
 //
 // Replaces two Pallas TPU kernels of tpu_diinn/kernels/decoder_fused.py:
 //
@@ -9,20 +10,26 @@
 //   of the arbitrary-ratio / window forward (x2.5 training). A query reads
 //   LR pixel (rows[y], cols[x]) for non-decreasing int32 index vectors.
 //
-// What bounds it on this card: the FP32 FFMA rate. Per query the backward
-// recomputes the forward (789,504 FLOP at hidden 256, L = 4) and then runs
-// two products per layer of the same size (dq through [Wkq | Wq]^T and the
-// weight gradient), 2,366,976 FLOP in all, against 12 B of g read and 4 KB
-// of dz shared by the s_h * s_w queries of an LR pixel. What the design
-// does about it, and what it does not yet: the chain pass keeps its tile's
-// k/q chain in shared memory and registers as the forward does; the
-// activations the reductions need go through device memory (about 20 KB
-// per query at hidden 256) because the weight gradients are reduced over
-// every query of the call, which no CTA owns. The Pallas kernels carry
-// those sums across the TPU's sequential grid; here each split of 4096
-// queries writes its own partial and a last pass adds the splits in a
-// fixed order, so the result is deterministic and uses no atomics.
-// fp32 IEEE FFMA throughout; tensor cores (wgmma) are later work.
+// What bounds it on this card. Per query the backward recomputes the
+// forward (789,504 FLOP at hidden 256, L = 4) and then runs two products
+// per layer of the same size (dq through [Wkq | Wq]^T and the weight
+// gradient), 2,366,976 FLOP in all, against 12 B of g read and 4 KB of dz
+// shared by the s_h * s_w queries of an LR pixel. In IEEE fp32 FFMA that is
+// bound by the 67 TFLOP/s fp32 rate. Here every product runs on the
+// tensor cores as wgmma TF32 in the 3xTF32 scheme, three TF32 products per
+// fp32 product, which keeps fp32-level error: 165 TFLOP/s of fp32-accurate
+// products at the 495 TFLOP/s TF32 peak. The chain kernel streams the
+// split weights into an mbarrier-guarded ring with the TMA unit (one
+// producer thread a warpgroup) and keeps the activation operand (q, or d
+// = [dkq | dqp]) in shared memory, split into registers as wgmma's A. At
+// that rate the bytes count too: the weight gradients are reduced over
+// every query of the call, which no CTA owns, so the chain writes the
+// activations the reductions need to device memory (18 KB per query at
+// hidden 256) and the reductions read them back (30 KB). The Pallas
+// kernels carry those sums across the TPU's sequential grid; here each
+// split of kSplitRows queries writes its own partial and a last pass adds
+// the splits in a fixed order, so the result is deterministic and uses no
+// atomics.
 //
 // Interface: plain C, loaded with ctypes, like decoder_fused.cu. Each
 // launcher runs on the caller's current device and stream, allocates
@@ -55,16 +62,16 @@ struct CudaLaunch {
 template <bool kWindow>
 static int launch(const float* z, const float* syn, const int* rows,
                   const int* cols, const float* w0, const float* b0,
-                  const float* wcat, const float* bcat, const float* wl,
-                  const float* wcat_t, const float* g, float* dz,
+                  const float* wslab, const float* bcat, const float* wl,
+                  const float* wtslab, const float* g, float* dz,
                   float* grads, float* scratch, int batch, int h_in,
                   int w_in, int h_out, int w_out, int s_h, int s_w,
                   int hidden, int n_layers, cudaStream_t stream) {
   CudaLaunch launcher{stream};
 #define DECODER_BWD_CASE(NC)                                                \
   case NC:                                                                  \
-    return run_bwd<NC, kWindow>(launcher, z, syn, rows, cols, w0, b0, wcat, \
-                                bcat, wl, wcat_t, g, dz, grads, scratch,    \
+    return run_bwd<NC, kWindow>(launcher, z, syn, rows, cols, w0, b0, wslab,\
+                                bcat, wl, wtslab, g, dz, grads, scratch,    \
                                 batch, h_in, w_in, h_out, w_out, s_h, s_w,  \
                                 n_layers);
   switch (hidden % 32 == 0 ? hidden / 32 : 0) {
@@ -87,21 +94,22 @@ long long decoder_bwd_scratch_floats(long long n_query, int hidden,
   return decoder_bwd::Plan(n_query, hidden, n_layers).s_total;
 }
 
-// z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), the packed
-// weights of decoder_fused.cu, wcat_t (L-1, 2*hidden, hidden), g (B,
-// s_h*H_in, s_w*W_in, 3) -> dz (B, H_in, W_in, L*hidden) and the flat
-// weight gradients (decoder_bwd::Plan); all fp32, contiguous.
+// z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), w0, b0, bcat
+// and wl as decoder_fused.cu takes them, wslab and wtslab the split
+// wgmma B slabs of [Wkq | Wq] and of its transpose (the wrapper's
+// mma_b_slabs), g (B, s_h*H_in, s_w*W_in, 3) -> dz (B, H_in, W_in, L*hidden) and the flat weight gradients
+// (decoder_bwd::Plan); all fp32, contiguous, 16-byte aligned.
 int launch_decode_int_bwd(const void* z, const void* syn, const void* w0,
-                          const void* b0, const void* wcat, const void* bcat,
-                          const void* wl, const void* wcat_t, const void* g,
+                          const void* b0, const void* wslab, const void* bcat,
+                          const void* wl, const void* wtslab, const void* g,
                           void* dz, void* grads, void* scratch, int batch,
                           int h_in, int w_in, int s_h, int s_w, int hidden,
                           int n_layers, void* stream) {
   return decoder_bwd::launch<false>(
       static_cast<const float*>(z), static_cast<const float*>(syn), nullptr,
       nullptr, static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wcat), static_cast<const float*>(bcat),
-      static_cast<const float*>(wl), static_cast<const float*>(wcat_t),
+      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
+      static_cast<const float*>(wl), static_cast<const float*>(wtslab),
       static_cast<const float*>(g), static_cast<float*>(dz),
       static_cast<float*>(grads), static_cast<float*>(scratch), batch, h_in,
       w_in, s_h * h_in, s_w * w_in, s_h, s_w, hidden, n_layers,
@@ -113,9 +121,10 @@ int launch_decode_int_bwd(const void* z, const void* syn, const void* w0,
 // syn (H_win, W_win, 3), g (B, H_win, W_win, 3).
 int launch_decode_window_bwd(const void* z, const void* syn,
                              const void* rows, const void* cols,
-                             const void* w0, const void* b0, const void* wcat,
-                             const void* bcat, const void* wl,
-                             const void* wcat_t, const void* g, void* dz,
+                             const void* w0, const void* b0,
+                             const void* wslab, const void* bcat,
+                             const void* wl, const void* wtslab,
+                             const void* g, void* dz,
                              void* grads, void* scratch, int batch, int h_in,
                              int w_in, int h_win, int w_win, int hidden,
                              int n_layers, void* stream) {
@@ -123,8 +132,8 @@ int launch_decode_window_bwd(const void* z, const void* syn,
       static_cast<const float*>(z), static_cast<const float*>(syn),
       static_cast<const int*>(rows), static_cast<const int*>(cols),
       static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wcat), static_cast<const float*>(bcat),
-      static_cast<const float*>(wl), static_cast<const float*>(wcat_t),
+      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
+      static_cast<const float*>(wl), static_cast<const float*>(wtslab),
       static_cast<const float*>(g), static_cast<float*>(dz),
       static_cast<float*>(grads), static_cast<float*>(scratch), batch, h_in,
       w_in, h_win, w_win, 1, 1, hidden, n_layers,

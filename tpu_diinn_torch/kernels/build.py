@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# library name -> {"seconds": build time (0.0 if cached), "log": nvcc output}
+# library name -> {"seconds": build time (0.0 if cached), "log": nvcc output,
+# kept beside the library as lib<name>.log}
 build_info: Dict[str, dict] = {}
 
 
@@ -71,8 +72,11 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile library ``name`` unless its content-addressed build exists."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
-        build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
+        build_info.setdefault(name, {
+            "seconds": 0.0,
+            "log": log.read_text() if log.exists() else "(cached)"})
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -85,6 +89,7 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:"
                            f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
     return out

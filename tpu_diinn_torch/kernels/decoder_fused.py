@@ -24,7 +24,8 @@ with the polynomial sine, reading z at its nearest-exact LR pixel.
   their VJPs. Each recomputes the chain and returns dz and the gradients of
   the packed weights; the kq half of ``dbcat`` is zero, because the kq
   biases reach the decoder folded into z and take their gradient through
-  it.
+  it. Their products run on the tensor cores in 3xTF32 (fp32-level error;
+  the wrapper splits [Wkq | Wq] once per call, ``mma_b_slabs``).
 
 Each dispatcher takes its plain PyTorch version (``*_ref``) only for a
 tensor on the CPU. For a CUDA tensor it launches the kernels of
@@ -428,11 +429,55 @@ def decode_window_fwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     return out
 
 
+def tf32_split(w: torch.Tensor) -> tuple:
+    """(hi, lo) of fp32 ``w`` for 3xTF32 products: hi is w rounded to TF32
+    (10 mantissa bits, to nearest, ties away from zero, as PTX
+    ``cvt.rna.tf32.f32``), so its low 13 mantissa bits are zero; lo = w -
+    hi, exact, so hi + lo == w."""
+    bits = w.to(torch.float32).contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def chain_b_operands(wcat: torch.Tensor) -> tuple:
+    """The B operands of the backward chain kernel's wgmma products
+    (``decoder_bwd.cuh``'s ChainTiling), as (L, K, passes, 2, n) views of
+    ``wcat``: warpgroup wg owns hidden columns [wg h/2, (wg + 1) h/2).
+    Forward (B = [Wkq | Wq], K = h): pass p of warpgroup wg reads the k and
+    then the a columns of its jb = h/2/passes columns from wg h/2 + p jb.
+    dq (B = [Wkq | Wq]^T, K = 2h): one pass, warpgroup wg reads its h/2
+    columns."""
+    n_layers, h, _ = wcat.shape
+    passes = h // 128 if h >= 256 else 1
+    jb = h // 2 // passes
+    fwd = (wcat.reshape(n_layers, h, 2, 2, passes, jb)
+           .permute(0, 1, 4, 3, 2, 5).reshape(n_layers, h, passes, 2, 2 * jb))
+    dq = wcat.transpose(1, 2).reshape(n_layers, 2 * h, 1, 2, h // 2)
+    return fwd, dq
+
+
+def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
+    """B operands w (L, K, P, WG, n) (the n columns that pass p of
+    warpgroup wg reads) of the chain kernel's wgmma TF32 products, split
+    and in the layout its B descriptor reads: (L, P, K/8, WG, 2, n/8, 2, 8,
+    4). One slab (p, k8 step s, wg) holds hi then lo; within each, element
+    (k = 8s + 4h + c, column 8g + r) sits at [g, h, r, c]: 8 x 4 core
+    matrices of 128 bytes, the two k halves 128 bytes apart, n8 groups 256
+    bytes apart (K-major, no swizzle)."""
+    n_layers, k, p, wg, n = w.shape
+    hi, lo = tf32_split(w)
+    x = torch.stack([hi, lo], dim=1)
+    x = x.reshape(n_layers, 2, k // 8, 2, 4, p, wg, n // 8, 8)
+    # (L, hi/lo, s, k half, c, P, WG, g, r) -> (L, P, s, WG, hi/lo, g, half,
+    # r, c)
+    return x.permute(0, 5, 2, 6, 1, 7, 3, 8, 4).contiguous()
+
+
 def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
                  params: dict) -> tuple:
     """dz, the flat weight-gradient vector with its per-key views (the
-    layout of ``decoder_bwd::Plan``), the transposed [Wkq | Wq] and the
-    scratch buffer of one backward call."""
+    layout of ``decoder_bwd::Plan``), the split wgmma B slabs of [Wkq | Wq]
+    and of its transpose, and the scratch buffer of one backward call."""
     dev = z.device
     sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
              "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
@@ -446,8 +491,15 @@ def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
     n_scratch = _library("decoder_bwd").decoder_bwd_scratch_floats(
         n_query, h, n_layers)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    wcat_t = params["wcat"].transpose(1, 2).contiguous()
-    return torch.empty_like(z), flat, grads, wcat_t, scratch
+    slabs = tuple(mma_b_slabs(w)
+                  for w in chain_b_operands(params["wcat"].detach()))
+    return torch.empty_like(z), flat, grads, slabs, scratch
+
+
+def _bwd_weights(params: dict, slabs: tuple) -> list:
+    return [params["w0"].data_ptr(), params["b0"].data_ptr(),
+            slabs[0].data_ptr(), params["bcat"].data_ptr(),
+            params["wl"].data_ptr(), slabs[1].data_ptr()]
 
 
 def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
@@ -461,12 +513,12 @@ def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
     h_out, w_out = s_h * h_in, s_w * w_in
     h, n_layers = _check_common(z, syn, params, (h_out, w_out))
     _check_grad(g, z, (b, h_out, w_out, 3))
-    dz, flat, grads, wcat_t, scratch = _bwd_buffers(
+    dz, flat, grads, slabs, scratch = _bwd_buffers(
         z, b * h_out * w_out, h, n_layers, params)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_int_bwd(
-            z.data_ptr(), syn.data_ptr(), *_weights(params)[:5],
-            wcat_t.data_ptr(), g.data_ptr(), dz.data_ptr(), flat.data_ptr(),
+            z.data_ptr(), syn.data_ptr(), *_bwd_weights(params, slabs),
+            g.data_ptr(), dz.data_ptr(), flat.data_ptr(),
             scratch.data_ptr(), b, h_in, w_in, s_h, s_w, h, n_layers,
             _stream(z.device))
     _raise_on(rc, "decode_int_bwd", "decoder_bwd")
@@ -487,12 +539,12 @@ def decode_window_bwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     h_win, w_win = rows.numel(), cols.numel()
     h, n_layers = _check_common(z, syn, params, (h_win, w_win))
     _check_grad(g, z, (b, h_win, w_win, 3))
-    dz, flat, grads, wcat_t, scratch = _bwd_buffers(
+    dz, flat, grads, slabs, scratch = _bwd_buffers(
         z, b * h_win * w_win, h, n_layers, params)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_window_bwd(
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),
-            cols.data_ptr(), *_weights(params)[:5], wcat_t.data_ptr(),
+            cols.data_ptr(), *_bwd_weights(params, slabs),
             g.data_ptr(), dz.data_ptr(), flat.data_ptr(), scratch.data_ptr(),
             b, h_in, w_in, h_win, w_win, h, n_layers, _stream(z.device))
     _raise_on(rc, "decode_window_bwd", "decoder_bwd")
