@@ -11,15 +11,19 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    library, all started together (content-addressed under
    ``build/tpu_diinn_torch/``), with ``ptxas`` registers and spills and,
    from ``cuobjdump -sass``, each kernel's count of tensor-core (``HMMA``,
-   ``HGMMA``) and fp32 ``FFMA`` instructions; the backward's chain and
-   weight-gradient kernels must show tensor-core instructions;
+   ``HGMMA``) and fp32 ``FFMA`` instructions; every instance of the
+   forward kernel must show ``HGMMA``, and the backward's chain and
+   weight-gradient kernels tensor-core instructions;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
    on main-path shapes, held against their plain PyTorch versions (max abs
-   error <= 1e-4: fp32 sums in another order over K <= 512), with time,
-   plain time and two bounds: ``bound_ms`` with the products at the fp32
-   FFMA rate, ``bound_tc_ms`` with them on the tensor cores in 3xTF32
-   (three TF32 products per fp32-accurate product), each against the
-   bytes at the HBM rate;
+   error <= 1e-4: fp32-level sums in another order over K <= 512; the
+   products run in 3xTF32 on the tensor cores), a second call bit for bit
+   equal to the first, with time (the wrapper's: the weights' split
+   included), device time by kernel, plain time and two bounds, each
+   against the bytes at the HBM rate: ``bound_ms`` with the products as
+   every kernel runs them, on the tensor cores in 3xTF32 (three TF32
+   products per fp32-accurate product), and ``bound_ffma_ms`` with them
+   at the fp32 FFMA rate, for reference;
 3b. training kernels at flagship widths and the training shapes (B = 4,
    LR 48x48): ``decode_int_fwd`` and ``decode_int_bwd`` at x2, x3, x4,
    ``decode_window_fwd`` and ``decode_window_bwd`` at 48 -> 120 (x2.5),
@@ -218,16 +222,16 @@ def query_flop_bwd(hidden: int, n_layers: int) -> int:
 
 
 def bound(flop: float, nbytes: float, peaks) -> dict:
-    """The least time for the work: its matmul FLOP at the fp32 FFMA rate
-    (``bound_ms``) or, for fp32-accurate products on the tensor cores,
-    three TF32 products each (``bound_tc_ms``), against its bytes at the
-    HBM rate, whichever is larger."""
-    t_ops = flop / peaks[0] * 1e3
+    """The least time for the work, the larger of its bytes at the HBM
+    rate and its matmul FLOP as the kernels run them: fp32-accurate
+    products on the tensor cores, three TF32 products each (``bound_ms``);
+    and, for reference, the same with the products at the fp32 FFMA rate
+    (``bound_ffma_ms``)."""
     t_bytes = nbytes / peaks[1] * 1e3
     t_tc = 3 * flop / peaks[2] * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_tc_ms": max(t_tc, t_bytes)}
+    return {"bound_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bound_ffma_ms": max(flop / peaks[0] * 1e3, t_bytes)}
 
 
 def sass_counts(lib: Path) -> dict:
@@ -270,13 +274,17 @@ def check_fwd(name, fn, ref, n_query, nbytes, peaks, shape,
     if not (math.isfinite(err) and err <= KERNEL_TOL):
         raise AssertionError(f"{name} {shape}: max abs error {err} > "
                              f"{KERNEL_TOL}")
+    if not torch.equal(out, fn()):
+        raise AssertionError(f"{name} {shape}: two calls differ")
     del out, want
     ms = time_ms(fn, reps)
     plain_ms = time_ms(ref, 3)
     flop = n_query * query_flop(HIDDEN, LAYERS)
-    return {"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound(flop, nbytes, peaks),
-            "library_ms": None, "achieved_tflops": flop / ms / 1e9}
+    return {"name": name, "shape": shape, "max_abs_err": err,
+            "deterministic": True, "ms": ms, "plain_ms": plain_ms,
+            **bound(flop, nbytes, peaks), "library_ms": None,
+            "achieved_tflops": flop / ms / 1e9,
+            "ms_by_device_kernel": profile_ms(fn)}
 
 
 def check_bwd(name, fn, ref, n_query, nbytes, peaks, shape, masked,
@@ -314,7 +322,8 @@ def check_bwd(name, fn, ref, n_query, nbytes, peaks, shape, masked,
 
 def profile_ms(fn, reps: int = 3) -> dict:
     """Device milliseconds per call of ``fn`` by kernel name, from
-    ``torch.profiler`` (the passes inside one backward launch)."""
+    ``torch.profiler``: the passes inside one backward launch, and the
+    wrapper's own PyTorch kernels (the weights' split)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -324,8 +333,10 @@ def profile_ms(fn, reps: int = 3) -> dict:
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", 0)
-        if t and "decoder" in e.key:
+        if t and ("decoder" in e.key or "at::native" in e.key):
             name = e.key.split("(")[0].replace("void ", "")
+            if "at::native" in name:
+                name = "pytorch: " + name.split("<")[0]
             out[name] = out.get(name, 0.0) + t / reps / 1e3
     return out
 
@@ -753,13 +764,17 @@ def main() -> int:
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         sass = sass_counts(build.library_path(name))
-        if name == "decoder_bwd" and "cuobjdump" not in sass:
-            for kern in ("decode_bwd_chain_kernel", "wgrad_kernel"):
-                tc = [v["HMMA"] + v["HGMMA"] for k, v in sass.items()
+        if "cuobjdump" not in sass:
+            need = {"decoder_fused": (("decode_fwd_kernel", ("HGMMA",)),),
+                    "decoder_bwd": (("decode_bwd_chain_kernel",
+                                     ("HMMA", "HGMMA")),
+                                    ("wgrad_kernel", ("HMMA", "HGMMA")))}
+            for kern, ops in need[name]:
+                tc = [sum(v[op] for op in ops) for k, v in sass.items()
                       if k.startswith(kern)]
                 if not tc or min(tc) == 0:
-                    raise AssertionError(f"{kern}: no tensor-core "
-                                         f"instructions: {sass}")
+                    raise AssertionError(f"{kern}: an instance without "
+                                         f"{'/'.join(ops)}: {sass}")
         phase("build", t, library=name,
               nvcc_seconds=round(info["seconds"], 3),
               path=str(build.library_path(name)), ptxas=regs,
@@ -794,19 +809,15 @@ def main() -> int:
                                rs + checks.get(f"{name}_train", [])),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "bound_tc_ms": first["bound_tc_ms"],
+            "bound_ffma_ms": first["bound_ffma_ms"],
             "library_ms": None, "shape": first["shape"],
             "achieved_tflops": first["achieved_tflops"]}
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_tc_ms", "achieved_tflops", "max_abs_err")
-        if name in FWD:
-            entry["train_shapes"] = [{k: r[k] for k in keys}
-                                     for r in checks[f"{name}_train"]]
-        else:
-            entry["train_shapes"] = [
-                {**{k: r[k] for k in keys},
-                 "ms_by_device_kernel": r["ms_by_device_kernel"]}
-                for r in rs]
+                "bound_ffma_ms", "achieved_tflops", "max_abs_err",
+                "ms_by_device_kernel")
+        entry["train_shapes"] = [
+            {k: r[k] for k in keys}
+            for r in (checks[f"{name}_train"] if name in FWD else rs)]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

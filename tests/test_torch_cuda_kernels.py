@@ -79,6 +79,54 @@ def test_decode_window_fwd_matches_plain(hidden, window):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+def test_decode_window_fwd_single_layer_matches_plain():
+    """L = 1 (no products: layer 0 and the head alone), hidden 64, a
+    window with a ragged last tile."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(64)
+    p = _params(64, 1, gen, dev)
+    lr, out_hw = (7, 9), (22, 28)
+    z = torch.randn((2, *lr, 64), generator=gen).to(dev)
+    rows = grids.nearest_exact_indices(lr[0], out_hw[0])[2:21]
+    cols = grids.nearest_exact_indices(lr[1], out_hw[1])[1:26]
+    syn = grids.syn_input_grid(lr, out_hw, device=dev)[2:21, 1:26]
+    syn = syn.contiguous()
+    before = K.launches["decode_window_fwd"]
+    got = K.decode_window_fwd(z, syn, K.index_vector(rows, lr[0], dev),
+                              K.index_vector(cols, lr[1], dev), p)
+    torch.cuda.synchronize()
+    assert K.launches["decode_window_fwd"] == before + 1
+    want = K.decode_window_fwd_ref(z, syn, rows, cols, p)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_decode_int_fwd_is_deterministic():
+    """Two calls on the same inputs agree bit for bit (flagship width,
+    x4 x3 on LR 9x7, B 2: 1,512 queries a batch, a ragged last tile)."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(5)
+    p = _params(256, 4, gen, dev)
+    z = torch.randn((2, 9, 7, 4 * 256), generator=gen).to(dev)
+    syn = grids.syn_input_grid((9, 7), (36, 21), device=dev)
+    a = K.decode_int_fwd(z, syn, 4, 3, p)
+    b = K.decode_int_fwd(z, syn, 4, 3, p)
+    assert torch.equal(a, b)
+
+
+def test_decode_window_fwd_is_deterministic():
+    """As for the integer route, at x2.5 (LR 24 -> 60, B 2)."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(6)
+    p = _params(256, 4, gen, dev)
+    z = torch.randn((2, 24, 24, 4 * 256), generator=gen).to(dev)
+    idx = grids.nearest_exact_indices(24, 60)
+    syn = grids.syn_input_grid((24, 24), (60, 60), device=dev)
+    v = K.index_vector(idx, 24, dev)
+    a = K.decode_window_fwd(z, syn, v, v, p)
+    b = K.decode_window_fwd(z, syn, v, v, p)
+    assert torch.equal(a, b)
+
+
 MARGIN = 1e-5
 
 

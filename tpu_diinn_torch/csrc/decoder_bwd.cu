@@ -43,22 +43,6 @@
 
 namespace decoder_bwd {
 
-struct CudaLaunch {
-  cudaStream_t stream;
-
-  template <class... KArgs, class... Args>
-  int operator()(void (*kernel)(KArgs...), dim3 grid, dim3 block, int smem,
-                 Args... args) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<grid, block, smem, stream>>>(args...);
-    return cudaGetLastError();
-  }
-};
-
 template <bool kWindow>
 static int launch(const float* z, const float* syn, const int* rows,
                   const int* cols, const float* w0, const float* b0,

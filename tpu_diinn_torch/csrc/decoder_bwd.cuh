@@ -1,7 +1,7 @@
 // Device code of the fused DIINN mode-3 decoder backward (fp32 accuracy on
 // the tensor cores, sm_90a).
 //
-// The VJP of the chain of decoder_fused.cuh for an upstream gradient g
+// The VJP of the chain of hopper_chain.cuh for an upstream gradient g
 // (one RGB gradient per HR query):
 //
 //   forward (recomputed):  k_0 = relu(z_0),   a_0 = syn @ W0 + b0
@@ -42,117 +42,33 @@
 //
 // Products (the recomputed q @ [Wkq | Wq], dq = d @ [Wkq | Wq]^T and the
 // weight gradient q^T d) run on the tensor cores as wgmma TF32 in the
-// 3xTF32 scheme (below), which keeps fp32-level error. The chain's weights
-// come split from the wrapper in wgmma's shared-memory B layout
-// (kernels/decoder_fused.py, mma_b_slabs) and stream in by TMA bulk copies
-// into an mbarrier-guarded ring; the activations are split in registers
-// as wgmma's A. The weight-gradient kernel splits both of its operands
-// itself.
+// 3xTF32 scheme (hopper_chain.cuh), which keeps fp32-level error. The
+// chain's weights come split from the wrapper in wgmma's shared-memory B
+// layout (kernels/decoder_fused.py, mma_b_slabs) and stream in by TMA bulk
+// copies into an mbarrier-guarded ring; the activations are split in
+// registers as wgmma's A. The weight-gradient kernel splits both of its
+// operands itself.
 //
-// The polynomial sine and cosine are core/fastmath.py's (_poly_sincos):
-// the same coefficients and Cody-Waite constants, copied here.
+// The recomputed forward is hopper_chain.cuh's chain_forward, the routine
+// the forward kernels run, so it computes the forward's q bit for bit.
 
 #pragma once
 
 #include <cstdint>
 #include <type_traits>
 
-#include "decoder_fused.cuh"
+#include "hopper_chain.cuh"
 
 namespace decoder_bwd {
 
-using decoder_fused::async_commit;
-using decoder_fused::async_wait;
-using decoder_fused::copy16_async;
-using decoder_fused::kThreads;
-using decoder_fused::kTileM;
+using namespace hopper_chain;
 
-constexpr int kStages = 4;         // weight slabs in flight a warpgroup (chain)
 constexpr int kSplitRows = 2048;   // queries per weight-gradient split
 constexpr int kSliceM = 32;        // queries per wgrad shared-memory stage
 constexpr int kWgradStages = 3;
 constexpr int kThinThreads = 256;
 constexpr int kThinWarps = kThinThreads / 32;
 constexpr int kThinSmem = kThinWarps * 5 * 32 * 4;
-
-__device__ __forceinline__ void poly_sincos(float x, float& s, float& c) {
-  const float n = rintf(x * 0.15915494309189535f);  // round half to even
-  const float r = x - n * 6.2831855f - n * -1.7484555e-07f;
-  const float r2 = r * r;
-  float as = -2.0362212148e-08f;
-  as = as * r2 + 2.6997138288e-06f;
-  as = as * r2 + -1.9808632624e-04f;
-  as = as * r2 + 8.3324029612e-03f;
-  as = as * r2 + -1.6666552631e-01f;
-  as = as * r2 + 9.9999959990e-01f;
-  s = r * as;
-  float ac = 1.7066625985e-09f;
-  ac = ac * r2 + -2.7023758023e-07f;
-  ac = ac * r2 + 2.4763353977e-05f;
-  ac = ac * r2 + -1.3887438022e-03f;
-  ac = ac * r2 + 4.1666391842e-02f;
-  ac = ac * r2 + -4.9999978455e-01f;
-  ac = ac * r2 + 9.9999995963e-01f;
-  c = ac;
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32. Each fp32 operand x is split into x_hi (x rounded to TF32) and
-// x_lo = x - x_hi, and a*b is summed as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
-// (small terms first). A tensor-core product rounds its sum with the
-// accumulator toward zero, so a long chain of products into one
-// accumulator drifts by up to an ulp of the accumulator per product; the
-// kernels sum a few products in a fresh accumulator and add that to the
-// running sum with fp32 adds (round to nearest). wgmma's register A
-// fragment for one warp's 16 rows (PTX ISA, .tf32, k8), lane = 4 gid +
-// tig: a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4), a3 (gid + 8,
-// tig + 4); its fp32 accumulator, n8 block i: d[4i] (gid, 8i + 2 tig),
-// d[4i + 1] (gid, 8i + 2 tig + 1), d[4i + 2] and d[4i + 3] the same at row
-// gid + 8.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t f2u(float x) {
-  union {
-    float f;
-    uint32_t u;
-  } v;
-  v.f = x;
-  return v.u;
-}
-
-__device__ __forceinline__ float u2f(uint32_t x) {
-  union {
-    float f;
-    uint32_t u;
-  } v;
-  v.u = x;
-  return v.f;
-}
-
-// x rounded to TF32 (10 mantissa bits; nearest, ties away from zero) and
-// the remainder x - hi, exact in fp32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-#if defined(__CUDA_ARCH__)
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-#else
-  hi = (f2u(x) + 0x1000u) & 0xffffe000u;
-#endif
-  lo = f2u(x - u2f(hi));
-}
-
-// The A fragment at (r0, k0) of a row-major fp32 tile in shared memory
-// (stride kLd), split.
-template <int kLd>
-__device__ __forceinline__ void load_a_rows(const float* a, int r0, int k0,
-                                            int gid, int tig, uint32_t (&hi)[4],
-                                            uint32_t (&lo)[4]) {
-  const float* p = a + (r0 + gid) * kLd + k0 + tig;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * kLd], hi[1], lo[1]);
-  split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * kLd + 4], hi[3], lo[3]);
-}
 
 // Where each piece of the backward lives, in floats. Per query the chain
 // stores q_i (hidden each, i = 0..L-1), k_i and a_i (hidden each, i =
@@ -190,415 +106,6 @@ struct Plan {
     s_total = s_part + static_cast<long long>(n_split) * n_grad;
   }
 };
-
-// ---------------------------------------------------------------------------
-// Hopper's asynchronous units for the chain kernel: TMA bulk copies into
-// an mbarrier-guarded ring, and wgmma with A from registers and B from
-// shared memory. Off the card a host test harness provides them.
-// ---------------------------------------------------------------------------
-
-#if !defined(__CUDACC__)
-void host_wgmma_tf32(float* d, int n, const uint32_t (&a)[4], const float* b,
-                     bool accumulate);
-void host_mbar_init(uint64_t* bar, int count);
-void host_mbar_wait(uint64_t* bar, uint32_t parity);
-void host_bulk_load(void* dst, const void* src, uint32_t bytes,
-                    uint64_t* bar);
-#endif
-
-#if defined(__CUDA_ARCH__)
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-#endif
-
-// wgmma's B descriptor for a K-major tile without swizzle: core matrices
-// of 8 rows x 16 B (128 contiguous bytes), the two k halves of a k8 step
-// 128 B apart (leading byte offset), n8 groups 256 B apart (stride byte
-// offset). mma_b_slabs in the wrapper writes the weights so.
-__device__ __forceinline__ uint64_t b_desc(const float* b) {
-#if defined(__CUDA_ARCH__)
-  const uint32_t a = smem_u32(b);
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
-#else
-  (void)b;
-  return 0;
-#endif
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-#elif !defined(__CUDACC__)
-  host_mbar_init(bar, count);
-#endif
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-#if defined(__CUDA_ARCH__)
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-#elif !defined(__CUDACC__)
-  host_mbar_wait(bar, parity);
-#endif
-}
-
-// `bytes` (a multiple of 16) from global src to shared dst by the TMA
-// unit; bar's current phase completes when they have landed. One thread
-// issues it.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-#elif !defined(__CUDACC__)
-  host_bulk_load(dst, src, bytes, bar);
-#endif
-}
-
-// Generic-proxy writes to shared memory, then async-proxy (TMA) writes to
-// the same bytes: order them.
-__device__ __forceinline__ void fence_proxy_async() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#endif
-}
-
-// Keep the compiler from touching d across an asynchronous wgmma.
-template <int kN>
-__device__ __forceinline__ void fence_regs(float (&d)[kN]) {
-#if defined(__CUDA_ARCH__)
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
-#endif
-}
-
-// One warpgroup's D (64 x N) = A (64 x 8) * B (8 x N) [+ D] in TF32, A from
-// registers (the m16n8k8 A fragment of each warp's 16 rows), B from shared
-// memory through b_desc. The _zero forms start from D = 0.
-__device__ __forceinline__ void wgmma_m64n16k8_zero(float (&d)[8],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(0));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 16, a, b, false);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n16k8_acc(float (&d)[8],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(1));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 16, a, b, true);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n32k8_zero(float (&d)[16],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(0));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 32, a, b, false);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n32k8_acc(float (&d)[16],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(1));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 32, a, b, true);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n64k8_zero(float (&d)[32],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(0));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 64, a, b, false);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n64k8_acc(float (&d)[32],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(1));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 64, a, b, true);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n128k8_zero(float (&d)[64],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(0));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 128, a, b, false);
-#endif
-}
-
-__device__ __forceinline__ void wgmma_m64n128k8_acc(float (&d)[64],
-    const uint32_t (&a)[4], const float* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc(b)),
-        "r"(1));
-#elif !defined(__CUDACC__)
-  host_wgmma_tf32(d, 128, a, b, true);
-#endif
-}
-
-template <int kN, bool kZero>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[kN / 2],
-                                           const uint32_t (&a)[4],
-                                           const float* b) {
-  if constexpr (kN == 16) {
-    if constexpr (kZero) wgmma_m64n16k8_zero(d, a, b);
-    else wgmma_m64n16k8_acc(d, a, b);
-  } else if constexpr (kN == 32) {
-    if constexpr (kZero) wgmma_m64n32k8_zero(d, a, b);
-    else wgmma_m64n32k8_acc(d, a, b);
-  } else if constexpr (kN == 64) {
-    if constexpr (kZero) wgmma_m64n64k8_zero(d, a, b);
-    else wgmma_m64n64k8_acc(d, a, b);
-  } else {
-    static_assert(kN == 128, "wgmma N");
-    if constexpr (kZero) wgmma_m64n128k8_zero(d, a, b);
-    else wgmma_m64n128k8_acc(d, a, b);
-  }
-}
-
-// How the chain CTA splits its work: two warpgroups, warpgroup wg owns
-// hidden columns [wg H/2, (wg + 1) H/2), warp w of it rows 16w..16w+15 of
-// the 64-query tile. The forward product runs in kPasses passes of kJB
-// columns, each one wgmma of N = kNF (the k and a columns of those j);
-// the dq product is one pass of N = kND. A thread owns the accumulator
-// elements of wgmma's layout: n8 block i, rows 16w + gid (+ 8), columns
-// 8i + 2 tig (+ 1).
-template <int kHidden>
-struct ChainTiling {
-  static constexpr int kPasses = kHidden >= 256 ? kHidden / 128 : 1;
-  static constexpr int kJB = kHidden / 2 / kPasses;
-  static constexpr int kNF = 2 * kJB;
-  static constexpr int kND = kHidden / 2;
-  static constexpr int kLdQ = kHidden + 4;       // q tile stride (floats)
-  static constexpr int kLdD = 2 * kHidden + 4;   // d tile stride
-  static constexpr int kBars = kTileM * 8 + 2 * kTileM * 3 * 4;
-  static constexpr int kHead = kBars + 2 * kStages * 8;
-  static constexpr int kSlabF = kNF * 16;        // floats: hi | lo
-  static constexpr int kSlabD = kND * 16;
-  // forward: [head | q tile | next q tile | rings]; backward: [head | d
-  // tile | rings]
-  static constexpr int kRingF = kHead + 2 * kTileM * kLdQ * 4;
-  static constexpr int kRingD = kHead + kTileM * kLdD * 4;
-  static constexpr int kEndF = kRingF + 2 * kStages * kSlabF * 4;
-  static constexpr int kEndD = kRingD + 2 * kStages * kSlabD * 4;
-  static constexpr int kSmem = kEndF > kEndD ? kEndF : kEndD;
-  static_assert(kJB % 8 == 0 && kND % 8 == 0 && kNF <= 128, "tiling");
-  static_assert(kSmem <= 232448, "shared memory");
-};
-
-// acc (the warpgroup's 64 x kN, kN/2 a thread) += A[:, 0:kK] @ B in
-// 3xTF32. A is fp32 in shared memory (stride kLd), split in registers.
-// B's split slabs (hi | lo, kN * 16 floats, mma_b_slabs' layout) stream
-// from global memory, slab s at slabs + s * slab_stride, into the
-// warpgroup's kStages-deep ring by the TMA unit, one mbarrier per slot
-// (`phase` holds each slot's parity). Each pair of k8 steps sums its six
-// products in a fresh accumulator (see 3xTF32 above) and waits for them
-// before their slots are refilled; the other warpgroup's products keep
-// the tensor cores busy meanwhile. kK / 8 is even.
-template <int kN, int kK, int kLd>
-__device__ __forceinline__ void wg_product(float (&acc)[kN / 2],
-                                           const float* a, int wrow0,
-                                           const float* __restrict__ slabs,
-                                           long long slab_stride,
-                                           float* ring, uint64_t* bars,
-                                           uint32_t& phase, bool producer,
-                                           int lane) {
-  constexpr int kSteps = kK / 8;
-  constexpr int kSlab = kN * 16;
-  static_assert(kSteps % 2 == 0 && kStages % 2 == 0, "k8 steps in pairs");
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  if (producer) {
-    for (int s = 0; s < kStages && s < kSteps; ++s)
-      bulk_load(ring + s * kSlab, slabs + s * slab_stride, kSlab * 4,
-                bars + s);
-  }
-  __syncwarp();
-  for (int s = 0; s < kSteps; s += 2) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int slot = (s + u) % kStages;
-      mbar_wait(bars + slot, (phase >> slot) & 1u);
-      phase ^= 1u << slot;
-      load_a_rows<kLd>(a, wrow0, (s + u) * 8, gid, tig, ah[u], al[u]);
-    }
-    float t[kN / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float* b = ring + ((s + u) % kStages) * kSlab;
-      if (u == 0)
-        wgmma_tf32<kN, true>(t, al[u], b);
-      else
-        wgmma_tf32<kN, false>(t, al[u], b);
-      wgmma_tf32<kN, false>(t, ah[u], b + kSlab / 2);
-      wgmma_tf32<kN, false>(t, ah[u], b);
-    }
-    wgmma_commit_wait();
-    fence_regs(t);
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) acc[i] += t[i];
-    if (producer) {
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        if (s + u + kStages < kSteps)
-          bulk_load(ring + ((s + u) % kStages) * kSlab,
-                    slabs + (s + u + kStages) * slab_stride, kSlab * 4,
-                    bars + (s + u) % kStages);
-    }
-    __syncwarp();
-  }
-}
-
-// a0 = syn @ W0 + b0 at hidden column j, as decoder_fused's layer 0.
-__device__ __forceinline__ float pre0(const float* sv, const float* w0,
-                                      const float* b0, int j, int hidden) {
-  return sv[0] * w0[j] + sv[1] * w0[hidden + j] + sv[2] * w0[2 * hidden + j] +
-         b0[j];
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
 
 // Recompute and backprop the chain for one tile of kTileM queries.
 // wslab and wtslab hold each layer's [Wkq | Wq] (H x 2H) and its
@@ -648,7 +155,6 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
   uint32_t phase = 0;
   const long long n_query = static_cast<long long>(batch) * h_out * w_out;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const long long c_all = static_cast<long long>(n_layers) * kHidden;
   const long long layer_floats = n_query * kHidden;
   const Plan plan(n_query, kHidden, n_layers);
   float* sq = scratch + plan.s_q;
@@ -660,33 +166,13 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
 
   // 1) each query's LR pixel (-1 past the ragged edge), syn and g; the
   //    rings' barriers
+  const long long qi = load_queries<kWindow>(
+      zoff, synv, syn, rows, cols, batch, h_in, w_in, h_out, w_out, s_h, s_w,
+      static_cast<long long>(n_layers) * kHidden);
   if (tid < kTileM) {
-    const long long qi = tile0 + tid;
-    long long off = -1;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
-    if (qi < n_query) {
-      const int x = static_cast<int>(qi % w_out);
-      const long long t = qi / w_out;
-      const int y = static_cast<int>(t % h_out);
-      const long long b = t / h_out;
-      const int ry = kWindow ? rows[y] : y / s_h;
-      const int cx = kWindow ? cols[x] : x / s_w;
-      off = ((b * h_in + ry) * w_in + cx) * c_all;
-      const float* sp = syn + (static_cast<long long>(y) * w_out + x) * 3;
-      s0 = sp[0];
-      s1 = sp[1];
-      s2 = sp[2];
-      g0 = g[qi * 3 + 0];
-      g1 = g[qi * 3 + 1];
-      g2 = g[qi * 3 + 2];
-    }
-    zoff[tid] = off;
-    synv[tid * 3 + 0] = s0;
-    synv[tid * 3 + 1] = s1;
-    synv[tid * 3 + 2] = s2;
-    gv[tid * 3 + 0] = g0;
-    gv[tid * 3 + 1] = g1;
-    gv[tid * 3 + 2] = g2;
+#pragma unroll
+    for (int o = 0; o < 3; ++o)
+      gv[tid * 3 + o] = qi >= 0 ? g[qi * 3 + o] : 0.f;
   }
   if (tid == 0) {
     uint64_t* all = reinterpret_cast<uint64_t*>(smem_raw + T::kBars);
@@ -694,80 +180,26 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
   }
   __syncthreads();
 
+  // 2) and 3) the forward (chain_forward, as the forward kernels run it),
+  //    storing q_i (i = 0..L-1), k_i and a_i (i >= 1) to the scratch
+  chain_forward<kHidden, false>(
+      zoff, synv, z, w0, b0, wslab, bcat, n_layers, q_cur, q_next, ring_f,
+      bars, phase,
+      [&](int layer, int, int m, int j, float q0, float q1, float k0,
+          float k1, float a0, float a1) {
+        const long long at = (tile0 + m) * kHidden + j;
+        store2(sq + layer * layer_floats + at, q0, q1);
+        if (layer > 0) {
+          store2(sk + (layer - 1) * layer_floats + at, k0, k1);
+          store2(sa + (layer - 1) * layer_floats + at, a0, a1);
+        }
+      });
+
   // The thread's dq elements (wgmma's layout for N = kND): n8 block i,
   // half hh, columns j, j + 1.
 #define CHAIN_FOR_DQ_PAIRS                          \
   _Pragma("unroll") for (int i = 0; i < kNB; ++i)   \
   _Pragma("unroll") for (int hh = 0; hh < 2; ++hh)
-
-  // 2) forward, layer 0 (as decode_fwd_kernel, plus the stores)
-  CHAIN_FOR_DQ_PAIRS {
-    const int m = wrow0 + gid + 8 * hh;
-    const int j = jw + 8 * i + 2 * tig;
-    const long long off = zoff[m];
-    float q0 = 0.f, q1 = 0.f;
-    if (off >= 0) {
-      const float2 zz = load2(z + off + j);
-      q0 = fmaxf(zz.x, 0.f) *
-           decoder_fused::poly_sin(pre0(synv + m * 3, w0, b0, j, kHidden));
-      q1 = fmaxf(zz.y, 0.f) *
-           decoder_fused::poly_sin(pre0(synv + m * 3, w0, b0, j + 1, kHidden));
-      store2(sq + (tile0 + m) * kHidden + j, q0, q1);
-    }
-    store2(q_cur + m * T::kLdQ + j, q0, q1);
-  }
-  __syncthreads();
-
-  // 3) forward, layers 1..L-1: [k | a] = q @ [Wkq | Wq] (+ z_i, + bq_i),
-  //    pass by pass into the next q tile
-  for (int layer = 1; layer < n_layers; ++layer) {
-    const float* bq = bcat + static_cast<long long>(layer - 1) * 2 * kHidden +
-                      kHidden;
-    const long long lq = layer * layer_floats;
-    const long long lka = (layer - 1) * layer_floats;
-#pragma unroll 1
-    for (int pass = 0; pass < T::kPasses; ++pass) {
-      float acc[T::kNF / 2];
-#pragma unroll
-      for (int c = 0; c < T::kNF / 2; ++c) acc[c] = 0.f;
-      wg_product<T::kNF, kHidden, T::kLdQ>(
-          acc, q_cur, wrow0,
-          wslab + ((static_cast<long long>(layer - 1) * T::kPasses + pass) *
-                       (kHidden / 8) * 2 + wg) * T::kSlabF,
-          2LL * T::kSlabF, ring_f, bars, phase, producer, lane);
-      // acc blocks [0, kJB/8): k columns; [kJB/8, kNF/8): a columns
-#pragma unroll
-      for (int i = 0; i < T::kJB / 8; ++i)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int m = wrow0 + gid + 8 * hh;
-          const int j = jw + pass * T::kJB + 8 * i + 2 * tig;
-          const long long off = zoff[m];
-          float q0 = 0.f, q1 = 0.f;
-          if (off >= 0) {
-            const float2 zz = load2(z + off + layer * kHidden + j);
-            const float2 bb = load2(bq + j);
-            const int ck = 4 * i + 2 * hh;
-            const int ca = 4 * (i + T::kJB / 8) + 2 * hh;
-            const float k0 = fmaxf(acc[ck] + zz.x, 0.f);
-            const float k1 = fmaxf(acc[ck + 1] + zz.y, 0.f);
-            const float a0 = acc[ca] + bb.x;
-            const float a1 = acc[ca + 1] + bb.y;
-            q0 = k0 * decoder_fused::poly_sin(a0);
-            q1 = k1 * decoder_fused::poly_sin(a1);
-            const long long at = (tile0 + m) * kHidden + j;
-            store2(sq + lq + at, q0, q1);
-            store2(sk + lka + at, k0, k1);
-            store2(sa + lka + at, a0, a1);
-          }
-          store2(q_next + m * T::kLdQ + j, q0, q1);
-        }
-    }
-    __syncthreads();  // the next q tile is whole; the old one is free
-    float* t = q_cur;
-    q_cur = q_next;
-    q_next = t;
-  }
 
   // 4) dq = g @ Wl^T at the thread's elements (registers from here on)
   float dq[T::kND / 2];
@@ -837,7 +269,7 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
 #pragma unroll
     for (int c = 0; c < T::kND / 2; ++c) dq[c] = 0.f;
     __syncthreads();  // publish the d tile
-    wg_product<T::kND, 2 * kHidden, T::kLdD>(
+    wg_product<T::kND, 2 * kHidden, T::kLdD, false>(
         dq, dtile, wrow0,
         wtslab + (static_cast<long long>(layer - 1) * (2 * kHidden / 8) * 2 +
                   wg) * T::kSlabD,
@@ -1112,17 +544,16 @@ wgrad_kernel(const float* __restrict__ q, const float* __restrict__ d,
       wgmma_tf32<T::kTP, false>(t, ah[k8], b + T::kTP * 8);
       wgmma_tf32<T::kTP, false>(t, ah[k8], b);
     }
-#if defined(__CUDA_ARCH__)
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-#endif
+    wgmma_commit();
     transform(it + 1);  // meanwhile, into the other slab
-#if defined(__CUDA_ARCH__)
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#endif
+    wgmma_wait<0>();
     fence_regs(t);
     // the products read ah and al until the wait: keep their registers
-    fence_regs(reinterpret_cast<float(&)[kK8 * 4]>(ah));
-    fence_regs(reinterpret_cast<float(&)[kK8 * 4]>(al));
+#pragma unroll
+    for (int k8 = 0; k8 < kK8; ++k8) {
+      fence_regs(ah[k8]);
+      fence_regs(al[k8]);
+    }
 #pragma unroll
     for (int c = 0; c < T::kTP / 2; ++c) acc[c] += t[c];
   }

@@ -1,28 +1,38 @@
-// Fused DIINN mode-3 decoder forward for Hopper (sm_90a), fp32.
+// Fused DIINN mode-3 decoder forward for Hopper (sm_90a): fp32 accuracy
+// from 3xTF32 tensor-core products.
 //
 // Replaces two Pallas TPU kernels of tpu_diinn/kernels/decoder_fused.py:
 //
-// - decode_int_fwd    <- decode_fused_int_eval / _fwd_kernel_int: the
-//   integer-ratio eval forward (x2, x3, x4, x8 ...). A query at (y, x)
-//   reads z[b, y / s_h, x / s_w, :] (nearest-exact for n_out = s * n_in is
-//   exactly i // s); the kernel masks the ragged last tile itself instead
-//   of zero-padding the LR map as the Pallas wrapper does.
+// - decode_int_fwd    <- decode_fused_int_eval / _fwd_kernel_int (and the
+//   training forward _fwd_pallas_int): the integer-ratio forward (x2, x3,
+//   x4, x8 ...). A query at (y, x) reads z[b, y / s_h, x / s_w, :]
+//   (nearest-exact for n_out = s * n_in is exactly i // s); the kernel
+//   masks the ragged last tile itself instead of zero-padding the LR map as
+//   the Pallas wrapper does.
 // - decode_window_fwd <- _fwd_pallas / _fwd_kernel (+ _chain_fwd): the
 //   arbitrary-ratio / window forward (x3.14, every chunk of the chunked
-//   eval). The Pallas kernel gathers rows and columns with one-hot matmuls
-//   on the TPU's MXU; here each query reads z through int32 row and column
-//   index vectors, and a window is an offset into those vectors.
+//   eval, x2.5 training). The Pallas kernel gathers rows and columns with
+//   one-hot matmuls on the TPU's MXU; here each query reads z through int32
+//   row and column index vectors, and a window is an offset into those
+//   vectors.
 //
-// What bounds it on this card: the FP32 FFMA rate. Each query costs
-// 2 * (3*256 + 3*256*512 + 256*3) = 789,504 FLOP at hidden 256 and L = 4,
-// against 4 KB of z read (shared by s_h*s_w queries, L2-resident) and 12 B
-// written: thousands of FLOP per byte of device memory. What the design
-// does about it: the whole k/q chain stays on chip (q tile in shared
-// memory, accumulators in registers), each layer's two GEMMs run as one
-// fused [Wkq | Wq] pass so a q value loaded once feeds 2*hidden/32 FFMAs
-// per lane, and the weights (1.5 MB, shared by every CTA) stream from L2
-// through a two-stage cp.async ring while the previous stage computes.
-// fp32 IEEE throughout; bf16 and tensor cores (wgmma) are later work.
+// What bounds it on this card: the products. Each query costs 2 * (3*256 +
+// 3*256*512 + 256*3) = 789,504 FLOP at hidden 256 and L = 4, against 4 KB
+// of z read (shared by the s_h*s_w queries of an LR pixel, L2-resident) and
+// 12 B written: thousands of FLOP per byte of device memory. In IEEE fp32
+// FFMA that is bound by the 67 TFLOP/s fp32 rate; here the products run on
+// the tensor cores as wgmma TF32 in the 3xTF32 scheme (three TF32 products
+// per fp32 product, fp32-level error): 165 TFLOP/s of fp32-accurate
+// products at the 495 TFLOP/s TF32 peak. What the design does about it
+// (hopper_chain.cuh, decoder_fused.cuh): the whole k/q chain stays on chip
+// (q tiles in shared memory, accumulators in registers), each layer's two
+// products run as one [Wkq | Wq] product, the split weights stream from L2
+// by TMA into an mbarrier ring, the next pair of k8 steps' A is loaded
+// while the current products run, and each epilogue gathers its z rows
+// all at once. Measured on the card (PERF.md), the products alone take
+// about their bound; the weight stream (1 MB a layer for every 64-query
+// tile) and the work between products do not hide behind them. The
+// backward's chain kernel recomputes the forward with the same routine.
 //
 // Interface: plain C, loaded with ctypes. Each launcher runs on the
 // caller's current device (the Python wrapper selects the tensors' device
@@ -35,41 +45,19 @@
 
 namespace decoder_fused {
 
-template <int kNC, bool kWindow>
-static cudaError_t launch_nc(const float* z, const float* syn, const int* rows,
-                             const int* cols, const float* w0, const float* b0,
-                             const float* wcat, const float* bcat,
-                             const float* wl, const float* bl, float* out,
-                             int batch, int h_in, int w_in, int h_out,
-                             int w_out, int s_h, int s_w, int n_layers,
-                             cudaStream_t stream) {
-  const long long n_query = static_cast<long long>(batch) * h_out * w_out;
-  if (n_query == 0) return cudaSuccess;
-  const int smem = smem_bytes(kNC * 32);
-  auto kernel = decode_fwd_kernel<kNC, kWindow>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const unsigned grid =
-      static_cast<unsigned>((n_query + kTileM - 1) / kTileM);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      z, syn, rows, cols, w0, b0, wcat, bcat, wl, bl, out, batch, h_in, w_in,
-      h_out, w_out, s_h, s_w, n_layers);
-  return cudaGetLastError();
-}
-
 template <bool kWindow>
-static int launch(const float* z, const float* syn,
-                  const int* rows, const int* cols, const float* w0,
-                  const float* b0, const float* wcat, const float* bcat,
-                  const float* wl, const float* bl, float* out, int batch,
-                  int h_in, int w_in, int h_out, int w_out, int s_h, int s_w,
-                  int hidden, int n_layers, cudaStream_t stream) {
+static int launch(const float* z, const float* syn, const int* rows,
+                  const int* cols, const float* w0, const float* b0,
+                  const float* wslab, const float* bcat, const float* wl,
+                  const float* bl, float* out, int batch, int h_in, int w_in,
+                  int h_out, int w_out, int s_h, int s_w, int hidden,
+                  int n_layers, cudaStream_t stream) {
+  CudaLaunch launcher{stream};
 #define DECODER_FUSED_CASE(NC)                                              \
   case NC:                                                                  \
-    return launch_nc<NC, kWindow>(z, syn, rows, cols, w0, b0, wcat, bcat,   \
-                                  wl, bl, out, batch, h_in, w_in, h_out,    \
-                                  w_out, s_h, s_w, n_layers, stream);
+    return run_fwd<NC, kWindow>(launcher, z, syn, rows, cols, w0, b0, wslab,\
+                                bcat, wl, bl, out, batch, h_in, w_in, h_out,\
+                                w_out, s_h, s_w, n_layers);
   // hidden 32, 64, 256 (the widths a config or test uses): one
   // instantiation each keeps the build short
   switch (hidden % 32 == 0 ? hidden / 32 : 0) {
@@ -86,38 +74,41 @@ static int launch(const float* z, const float* syn,
 
 extern "C" {
 
-// z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3),
-// out (B, s_h*H_in, s_w*W_in, 3); all fp32, contiguous.
-int launch_decode_int_fwd(const void* z, const void* syn,
-                          const void* w0, const void* b0, const void* wcat,
+// z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), w0, b0, bcat,
+// wl and bl as the wrapper packs them (pack_params), wslab the split wgmma
+// B slabs of [Wkq | Wq] (the wrapper's mma_b_slabs) -> out (B, s_h*H_in,
+// s_w*W_in, 3); all fp32, contiguous, 16-byte aligned.
+int launch_decode_int_fwd(const void* z, const void* syn, const void* w0,
+                          const void* b0, const void* wslab,
                           const void* bcat, const void* wl, const void* bl,
                           void* out, int batch, int h_in, int w_in, int s_h,
                           int s_w, int hidden, int n_layers, void* stream) {
   return decoder_fused::launch<false>(
       static_cast<const float*>(z), static_cast<const float*>(syn),
       nullptr, nullptr, static_cast<const float*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(wcat),
+      static_cast<const float*>(b0), static_cast<const float*>(wslab),
       static_cast<const float*>(bcat), static_cast<const float*>(wl),
       static_cast<const float*>(bl), static_cast<float*>(out), batch, h_in,
       w_in, s_h * h_in, s_w * w_in, s_h, s_w, hidden, n_layers,
       static_cast<cudaStream_t>(stream));
 }
 
-// z (B, H_in, W_in, L*hidden), syn (H_win, W_win, 3), rows (H_win,) and
-// cols (W_win,) int32 indices into z's rows/columns,
+// As launch_decode_int_fwd for the window whose queries read LR rows rows
+// (H_win,) and LR columns cols (W_win,), int32; syn (H_win, W_win, 3),
 // out (B, H_win, W_win, 3).
 int launch_decode_window_fwd(const void* z, const void* syn,
                              const void* rows, const void* cols,
-                             const void* w0, const void* b0, const void* wcat,
-                             const void* bcat, const void* wl, const void* bl,
-                             void* out, int batch, int h_in, int w_in,
-                             int h_win, int w_win, int hidden, int n_layers,
+                             const void* w0, const void* b0,
+                             const void* wslab, const void* bcat,
+                             const void* wl, const void* bl, void* out,
+                             int batch, int h_in, int w_in, int h_win,
+                             int w_win, int hidden, int n_layers,
                              void* stream) {
   return decoder_fused::launch<true>(
       static_cast<const float*>(z), static_cast<const float*>(syn),
       static_cast<const int*>(rows), static_cast<const int*>(cols),
       static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wcat), static_cast<const float*>(bcat),
+      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
       static_cast<const float*>(wl), static_cast<const float*>(bl),
       static_cast<float*>(out), batch, h_in, w_in, h_win, w_win, 1, 1, hidden,
       n_layers, static_cast<cudaStream_t>(stream));

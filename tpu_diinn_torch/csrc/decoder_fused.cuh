@@ -1,270 +1,111 @@
-// Device code of the fused DIINN mode-3 decoder forward (fp32, sm_90a).
+// Device code of the fused DIINN mode-3 decoder forward (fp32 accuracy on
+// the tensor cores, sm_90a).
 //
-// Both kernels of decoder_fused.cu run the same chain over a tile of
-// kTileM HR queries:
+// Both kernels of decoder_fused.cu run, per tile of kTileM HR queries, the
+// chain of hopper_chain.cuh (chain_forward: layer 0 elementwise, layers
+// 1..L-1 as wgmma TF32 products in 3xTF32 with the weights streamed by
+// TMA), the routine the backward recomputes the forward with, and then
+// the head
 //
-//   k = relu(z0);  q = k * sin(syn @ W0 + b0)
-//   k = relu(q @ Wkq_i + z_i);  q = k * sin(q @ Wq_i + bq_i)   i = 1..L-1
-//   out = q @ Wl + bl
+//   out = q_{L-1} @ Wl + bl
 //
-// z is the stacked LR feature map (B, H_in, W_in, L*hidden) with the kq
-// biases already folded in; each query reads the z row of its nearest-exact
-// LR pixel. The two kernels differ only in how that pixel is found: an
-// integer ratio (y / s_h, x / s_w), or explicit row/column index vectors
-// for an arbitrary ratio or a window of the HR grid.
-//
-// Layout of the CTA (256 threads = 8 warps, kTileM = 64 queries):
-// - warp w owns query rows 8w..8w+7 of the tile; lane l owns hidden
-//   columns l, l+32, ..., so one warp's loads of a q row are a broadcast and
-//   its loads of a weight row are 32 consecutive floats (no bank conflict);
-// - the fp32 q tile (64 x hidden) stays in shared memory for the whole
-//   chain; each layer's fused [Wkq | Wq] (hidden x 2*hidden) streams
-//   through a two-stage shared-memory ring of kSliceK rows (cp.async);
-// - each thread keeps an 8 x hidden/32 register tile for each half of the
-//   fused GEMM (128 + 128 accumulators at hidden 256) and accumulates with
-//   fp32 FFMA in IEEE order over k: no TF32, no tensor cores;
-// - the epilogue adds z_i (gathered straight from global memory; L2 holds
-//   the LR map) and bq, applies relu and the polynomial sine, and
-//   overwrites the q tile in place.
-//
-// The polynomial sine is core/fastmath.py's: the same degree-11
-// coefficients and Cody-Waite constants, copied here.
+// from the last q tile, one running fp32 sum over k in order a (query,
+// channel), as the reference's product sums it: the head's rounding lands
+// on the output, whose L1 residual signs a training step reads. The two
+// kernels differ only in how a query finds its LR pixel: an integer ratio
+// (y / s_h, x / s_w), or int32 row and column index vectors for any ratio
+// or a window of the HR grid.
 
 #pragma once
 
 #include <cstdint>
 
+#include "hopper_chain.cuh"
+
 namespace decoder_fused {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileM = 64;                    // HR queries per CTA
-constexpr int kRowsPerWarp = kTileM / kWarps;  // 8
-constexpr int kSliceK = 16;                   // weight rows per ring stage
+using namespace hopper_chain;
 
-__device__ __forceinline__ float poly_sin(float x) {
-  const float n = rintf(x * 0.15915494309189535f);  // round half to even
-  const float r = x - n * 6.2831855f - n * -1.7484555e-07f;
-  const float r2 = r * r;
-  float acc = -2.0362212148e-08f;
-  acc = acc * r2 + 2.6997138288e-06f;
-  acc = acc * r2 + -1.9808632624e-04f;
-  acc = acc * r2 + 8.3324029612e-03f;
-  acc = acc * r2 + -1.6666552631e-01f;
-  acc = acc * r2 + 9.9999959990e-01f;
-  return r * acc;
-}
-
-// 16-byte global -> shared copy; asynchronous on sm_80 and later.
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#else
-  dst[0] = src[0];
-  dst[1] = src[1];
-  dst[2] = src[2];
-  dst[3] = src[3];
-#endif
-}
-
-__device__ __forceinline__ void async_commit() {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// Wait until at most `kPending` committed groups are still in flight.
-template <int kPending>
-__device__ __forceinline__ void async_wait() {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-#endif
-}
-
-// Stage rows [k0, k0 + kSliceK) of one layer's (hidden x 2*hidden) weights.
-template <int kHidden>
-__device__ __forceinline__ void stage_slice(float* dst, const float* w_layer,
-                                            int k0) {
-  constexpr int kChunks = kSliceK * 2 * kHidden / 4;
-  const float* src = w_layer + static_cast<long long>(k0) * 2 * kHidden;
-  for (int i = threadIdx.x; i < kChunks; i += kThreads)
-    copy16_async(dst + 4 * i, src + 4 * i);
-}
-
-// Shared-memory bytes of one CTA.
-__host__ __device__ constexpr int smem_bytes(int hidden) {
-  return kTileM * 8                               // z offsets (int64)
-         + kTileM * 3 * 4                         // synthesis inputs
-         + kTileM * (hidden + 1) * 4              // q tile, padded rows
-         + 2 * kSliceK * 2 * hidden * 4;          // weight ring
-}
-
-// kNC = hidden / 32 columns per lane. kWindow selects the index-vector
-// gather (rows/cols) over the integer-ratio one (s_h/s_w).
+// kNC = hidden / 32. kWindow selects the index-vector gather (rows/cols)
+// over the integer-ratio one (s_h/s_w). wslab holds each layer's [Wkq |
+// Wq] as split wgmma B slabs (mma_b_slabs of chain_b_operands' forward
+// operand, in the wrapper).
 template <int kNC, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_fwd_kernel(const float* __restrict__ z, const float* __restrict__ syn,
                   const int* __restrict__ rows, const int* __restrict__ cols,
                   const float* __restrict__ w0, const float* __restrict__ b0,
-                  const float* __restrict__ wcat,
+                  const float* __restrict__ wslab,
                   const float* __restrict__ bcat,
                   const float* __restrict__ wl, const float* __restrict__ bl,
                   float* __restrict__ out, int batch, int h_in, int w_in,
                   int h_out, int w_out, int s_h, int s_w, int n_layers) {
   constexpr int kHidden = kNC * 32;
-  constexpr int kN2 = 2 * kHidden;
-  constexpr int kQStride = kHidden + 1;  // odd stride: the head's column
-                                         // reads hit 32 different banks
+  using T = ChainTiling<kHidden>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* zoff = reinterpret_cast<long long*>(smem_raw);
   float* synv = reinterpret_cast<float*>(smem_raw + kTileM * 8);
-  float* qs = synv + kTileM * 3;
-  float* ring = reinterpret_cast<float*>(
-      smem_raw + kTileM * 8 + kTileM * 3 * 4 + kTileM * kQStride * 4);
+  float* q_cur = reinterpret_cast<float*>(smem_raw + T::kHead);
+  float* q_next = q_cur + kTileM * T::kLdQ;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row0 = (tid >> 5) * kRowsPerWarp;
-  const long long n_query = static_cast<long long>(batch) * h_out * w_out;
+  const int wg = tid >> 7;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + T::kBars) +
+                   wg * kStages;
+  float* ring = reinterpret_cast<float*>(smem_raw + T::kRingF) +
+                wg * kStages * T::kSlabF;
+  uint32_t phase = 0;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const long long c_all = static_cast<long long>(n_layers) * kHidden;
 
-  // 1) each query's LR pixel (as a z offset; -1 past the ragged edge) and
-  //    its synthesis input
-  if (tid < kTileM) {
-    const long long qi = tile0 + tid;
-    long long off = -1;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    if (qi < n_query) {
-      const int x = static_cast<int>(qi % w_out);
-      const long long t = qi / w_out;
-      const int y = static_cast<int>(t % h_out);
-      const long long b = t / h_out;
-      const int ry = kWindow ? rows[y] : y / s_h;
-      const int cx = kWindow ? cols[x] : x / s_w;
-      off = ((b * h_in + ry) * w_in + cx) * c_all;
-      const float* sp = syn + (static_cast<long long>(y) * w_out + x) * 3;
-      s0 = sp[0];
-      s1 = sp[1];
-      s2 = sp[2];
-    }
-    zoff[tid] = off;
-    synv[tid * 3 + 0] = s0;
-    synv[tid * 3 + 1] = s1;
-    synv[tid * 3 + 2] = s2;
+  // 1) each query's LR pixel (-1 past the ragged edge) and syn; the rings'
+  //    barriers
+  load_queries<kWindow>(zoff, synv, syn, rows, cols, batch, h_in, w_in,
+                        h_out, w_out, s_h, s_w,
+                        static_cast<long long>(n_layers) * kHidden);
+  if (tid == 0) {
+    uint64_t* all = reinterpret_cast<uint64_t*>(smem_raw + T::kBars);
+    for (int i = 0; i < 2 * kStages; ++i) mbar_init(all + i, 1);
   }
   __syncthreads();
 
-  // 2) layer 0: q = relu(z0) * sin(syn @ W0 + b0)
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int m = row0 + r;
-    const long long off = zoff[m];
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) {
-      const int j = lane + 32 * c;
-      float q = 0.f;
-      if (off >= 0) {
-        const float pre = synv[m * 3 + 0] * w0[j] +
-                          synv[m * 3 + 1] * w0[kHidden + j] +
-                          synv[m * 3 + 2] * w0[2 * kHidden + j] + b0[j];
-        q = fmaxf(z[off + j], 0.f) * poly_sin(pre);
-      }
-      qs[m * kQStride + j] = q;
-    }
-  }
-  __syncthreads();
+  // 2) the chain; layer L-1's q lands in q_last
+  float* q_last = (n_layers - 1) % 2 ? q_next : q_cur;
+  chain_forward<kHidden, true>(
+      zoff, synv, z, w0, b0, wslab, bcat, n_layers, q_cur, q_next, ring,
+      bars, phase,
+      [](int, int, int, int, float, float, float, float, float, float) {});
 
-  // 3) layers 1..L-1: [k | q'] = q @ [Wkq | Wq], then the epilogue
-  constexpr int kSlices = kHidden / kSliceK;
-  for (int layer = 1; layer < n_layers; ++layer) {
-    const float* w_layer =
-        wcat + static_cast<long long>(layer - 1) * kHidden * kN2;
-    float acc_k[kRowsPerWarp][kNC];
-    float acc_q[kRowsPerWarp][kNC];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        acc_k[r][c] = 0.f;
-        acc_q[r][c] = 0.f;
-      }
-
-    stage_slice<kHidden>(ring, w_layer, 0);
-    async_commit();
-    for (int s = 0; s < kSlices; ++s) {
-      if (s + 1 < kSlices) {
-        // the other stage was last read in iteration s-1, which every
-        // thread has left (trailing barrier below)
-        stage_slice<kHidden>(ring + ((s + 1) & 1) * kSliceK * kN2, w_layer,
-                             (s + 1) * kSliceK);
-        async_commit();
-        async_wait<1>();
-      } else {
-        async_wait<0>();
-      }
-      __syncthreads();
-      const float* wb = ring + (s & 1) * kSliceK * kN2;
-      const int k0 = s * kSliceK;
-#pragma unroll
-      for (int kk = 0; kk < kSliceK; ++kk) {
-        float a[kRowsPerWarp];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-          a[r] = qs[(row0 + r) * kQStride + k0 + kk];
-        float bk[kNC], bq[kNC];
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          bk[c] = wb[kk * kN2 + lane + 32 * c];
-          bq[c] = wb[kk * kN2 + kHidden + lane + 32 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-          for (int c = 0; c < kNC; ++c) {
-            acc_k[r][c] = fmaf(a[r], bk[c], acc_k[r][c]);
-            acc_q[r][c] = fmaf(a[r], bq[c], acc_q[r][c]);
-          }
-      }
-      __syncthreads();
-    }
-
-    // Epilogue. Rows 8w..8w+7 are read and written by warp w alone, and
-    // the barrier above ended every read of the old q.
-    const float* bq_layer = bcat + static_cast<long long>(layer - 1) * kN2
-                            + kHidden;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int m = row0 + r;
-      const long long off = zoff[m];
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        const int j = lane + 32 * c;
-        float q = 0.f;
-        if (off >= 0) {
-          const float k =
-              fmaxf(acc_k[r][c] + z[off + layer * kHidden + j], 0.f);
-          q = k * poly_sin(acc_q[r][c] + bq_layer[j]);
-        }
-        qs[m * kQStride + j] = q;
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4) head: out = q @ Wl + bl, one (query, channel) dot product a thread
+  // 3) head: one running sum over k in order a (query, channel), as the
+  //    reference's product sums it
   if (tid < kTileM * 3) {
     const int m = tid / 3;
     const int o = tid - 3 * m;
     if (zoff[m] >= 0) {
       float acc = 0.f;
       for (int k = 0; k < kHidden; ++k)
-        acc = fmaf(qs[m * kQStride + k], wl[k * 3 + o], acc);
+        acc = fmaf(q_last[m * T::kLdQ + k], wl[k * 3 + o], acc);
       out[(tile0 + m) * 3 + o] = acc + bl[o];
     }
   }
+}
+
+// The forward as its launch. `launch(kernel, grid, block, smem, args...)`
+// is the caller's: a CUDA launch on its stream, or a host emulation in a
+// test harness. Returns its error.
+template <int kNC, bool kWindow, class Launch>
+int run_fwd(Launch& launch, const float* z, const float* syn,
+            const int* rows, const int* cols, const float* w0,
+            const float* b0, const float* wslab, const float* bcat,
+            const float* wl, const float* bl, float* out, int batch,
+            int h_in, int w_in, int h_out, int w_out, int s_h, int s_w,
+            int n_layers) {
+  const long long m = static_cast<long long>(batch) * h_out * w_out;
+  if (m == 0) return 0;
+  return launch(decode_fwd_kernel<kNC, kWindow>,
+                static_cast<unsigned>((m + kTileM - 1) / kTileM), kThreads,
+                ChainTiling<kNC * 32>::kEndF, z, syn, rows, cols, w0, b0,
+                wslab, bcat, wl, bl, out, batch, h_in, w_in, h_out, w_out,
+                s_h, s_w, n_layers);
 }
 
 }  // namespace decoder_fused

@@ -1,0 +1,57 @@
+// Host emulation of decoder_fused.cuh for tests on a machine without a
+// card: g++ runs run_fwd's launch with one std::thread per CUDA thread
+// (hopper_host.h), held against the plain PyTorch versions by
+// tests/test_torch_decoder_fused_host.py.
+//
+//   g++ -std=c++20 -O1 -pthread -I tpu_diinn_torch/csrc
+//       tpu_diinn_torch/csrc/decoder_fused_host.cpp -o decoder_fused_host
+//   decoder_fused_host DIR WINDOW B H_IN W_IN H_OUT W_OUT S_H S_W HIDDEN L
+//
+// DIR holds the raw little-endian inputs z, syn, w0, b0, wf, bcat, wl, bl
+// (float32; wf the wrapper's mma_b_slabs of the forward operand) and rows,
+// cols (int32); the program writes out_out (B, H_OUT, W_OUT, 3) there.
+
+#include "hopper_host.h"
+
+#include "decoder_fused.cuh"
+
+namespace decoder_fused {
+alignas(16) unsigned char smem_raw[kHostSmem];
+}  // namespace decoder_fused
+
+template <int kNC, bool kWindow>
+static int run(const std::string& dir, const int* a) {
+  auto in = [&](const char* name) { return slurp(dir + "/" + name); };
+  const auto z = in("z"), syn = in("syn"), w0 = in("w0"), b0 = in("b0"),
+             wf = in("wf"), bcat = in("bcat"), wl = in("wl"), bl = in("bl"),
+             rows = in("rows"), cols = in("cols");
+  const int batch = a[0], h_in = a[1], w_in = a[2], h_out = a[3],
+            w_out = a[4], s_h = a[5], s_w = a[6], L = a[8];
+  std::vector<float> out(static_cast<size_t>(batch) * h_out * w_out * 3, NAN);
+  HostLaunch launch{decoder_fused::smem_raw};
+  const int err = decoder_fused::run_fwd<kNC, kWindow>(
+      launch, floats(z), floats(syn), ints(rows), ints(cols), floats(w0),
+      floats(b0), floats(wf), floats(bcat), floats(wl), floats(bl),
+      out.data(), batch, h_in, w_in, h_out, w_out, s_h, s_w, L);
+  if (err) return err;
+  dump(dir + "/out_out", out);
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 12) {
+    fprintf(stderr, "usage: %s DIR WINDOW B H_IN W_IN H_OUT W_OUT S_H S_W "
+                    "HIDDEN L\n", argv[0]);
+    return 2;
+  }
+  const std::string dir = argv[1];
+  const bool window = atoi(argv[2]) != 0;
+  int a[9];
+  for (int i = 0; i < 9; ++i) a[i] = atoi(argv[3 + i]);
+  switch (a[7]) {
+    case 32: return window ? run<1, true>(dir, a) : run<1, false>(dir, a);
+    case 64: return window ? run<2, true>(dir, a) : run<2, false>(dir, a);
+    case 256: return window ? run<8, true>(dir, a) : run<8, false>(dir, a);
+    default: return 2;
+  }
+}

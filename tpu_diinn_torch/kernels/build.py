@@ -30,11 +30,13 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "tpu_diinn_torch"
 
-# library name -> (compiled source, headers it includes)
+# library name -> (compiled source, headers it includes); the headers are
+# part of the build's content hash
 SOURCES = {
-    "decoder_fused": ("decoder_fused.cu", ("decoder_fused.cuh",)),
+    "decoder_fused": ("decoder_fused.cu", ("decoder_fused.cuh",
+                                           "hopper_chain.cuh")),
     "decoder_bwd": ("decoder_bwd.cu", ("decoder_bwd.cuh",
-                                       "decoder_fused.cuh")),
+                                       "hopper_chain.cuh")),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -24,8 +24,13 @@ with the polynomial sine, reading z at its nearest-exact LR pixel.
   their VJPs. Each recomputes the chain and returns dz and the gradients of
   the packed weights; the kq half of ``dbcat`` is zero, because the kq
   biases reach the decoder folded into z and take their gradient through
-  it. Their products run on the tensor cores in 3xTF32 (fp32-level error;
-  the wrapper splits [Wkq | Wq] once per call, ``mma_b_slabs``).
+  it.
+
+Every product runs on the tensor cores (``wgmma`` TF32) in 3xTF32, which
+keeps fp32-level error. The wrapper splits [Wkq | Wq] into wgmma's B
+layout once per call (``forward_slabs``, and ``mma_b_slabs`` of its
+transpose for the backward); ``decode`` splits it once per training step
+and hands the forward's slabs on to the backward.
 
 Each dispatcher takes its plain PyTorch version (``*_ref``) only for a
 tensor on the CPU. For a CUDA tensor it launches the kernels of
@@ -45,8 +50,9 @@ import torch
 
 from tpu_diinn_torch.core.fastmath import _poly_sin, _poly_sincos
 
-# Hidden widths the CUDA kernels are instantiated for: each lane of a warp
-# owns hidden/32 columns, held in a register tile sized at compile time.
+# Hidden widths the CUDA kernels are instantiated for (one template
+# instance each, sized at compile time: each of a CTA's two warpgroups owns
+# hidden/2 columns, as wgmma products of N = hidden or less).
 KERNEL_HIDDEN = (32, 64, 256)
 MAX_INT_RATIO = 16
 PARAM_KEYS = ("w0", "b0", "wcat", "bcat", "wl", "bl")
@@ -225,7 +231,8 @@ def decode_window_bwd_ref(z: torch.Tensor, syn: torch.Tensor, rows, cols,
 
 class _Decode(torch.autograd.Function):
     """One fused decode: the forward dispatcher, and as its backward the
-    matching backward dispatcher. Saves z, syn and the packed weights; the
+    matching backward dispatcher. Saves z, syn, the packed weights and (on
+    a card) the forward's weight slabs, which the backward reads again; the
     backward recomputes the chain, so no HR activation is kept."""
 
     @staticmethod
@@ -233,9 +240,11 @@ class _Decode(torch.autograd.Function):
         ctx.route = route
         ctx.save_for_backward(syn, z, *weights)
         p = dict(zip(PARAM_KEYS, weights))
+        ctx.slabs = None if z.device.type == "cpu" else forward_slabs(
+            p["wcat"])
         if route[0] == "int":
-            return decode_int_fwd(z, syn, route[1], route[2], p)
-        return decode_window_fwd(z, syn, route[1], route[2], p)
+            return decode_int_fwd(z, syn, route[1], route[2], p, ctx.slabs)
+        return decode_window_fwd(z, syn, route[1], route[2], p, ctx.slabs)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -245,9 +254,11 @@ class _Decode(torch.autograd.Function):
         route = ctx.route
         g = g.to(torch.float32).contiguous()
         if route[0] == "int":
-            dz, grads = decode_int_bwd(z, syn, route[1], route[2], p, g)
+            dz, grads = decode_int_bwd(z, syn, route[1], route[2], p, g,
+                                       ctx.slabs)
         else:
-            dz, grads = decode_window_bwd(z, syn, route[1], route[2], p, g)
+            dz, grads = decode_window_bwd(z, syn, route[1], route[2], p, g,
+                                          ctx.slabs)
         return (None, None, dz, *(grads[k] for k in PARAM_KEYS))
 
 
@@ -358,8 +369,13 @@ def _check_tensor(name: str, t: torch.Tensor, z: torch.Tensor) -> None:
     _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
-def _weights(params: dict) -> list:
-    return [params[k].data_ptr() for k in PARAM_KEYS]
+def _fwd_weights(params: dict, slabs) -> list:
+    """The forward launchers' weight pointers: ``wcat`` as its split B
+    slabs (made here unless given)."""
+    if slabs is None:
+        slabs = forward_slabs(params["wcat"])
+    return [(slabs if k == "wcat" else params[k]).data_ptr()
+            for k in PARAM_KEYS]
 
 
 def _raise_on(rc: int, name: str, lib: str = "decoder_fused") -> None:
@@ -373,11 +389,12 @@ def _stream(device: torch.device) -> int:
 
 
 def decode_int_fwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
-                   params: dict) -> torch.Tensor:
+                   params: dict, slabs=None) -> torch.Tensor:
     """Integer-ratio decode of the full HR grid (s_h*H_in, s_w*W_in).
 
     z (B, H_in, W_in, L*H), syn (s_h*H_in, s_w*W_in, 3) -> (B, H_out,
-    W_out, 3) float32.
+    W_out, 3) float32. ``slabs``: ``forward_slabs(params["wcat"])`` where
+    the caller has them (made here otherwise).
     """
     if z.device.type == "cpu":
         return decode_int_fwd_ref(z, syn, s_h, s_w, params)
@@ -389,8 +406,9 @@ def decode_int_fwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
                       device=z.device)
     with torch.cuda.device(z.device):
         rc = _library().launch_decode_int_fwd(
-            z.data_ptr(), syn.data_ptr(), *_weights(params), out.data_ptr(),
-            b, h_in, w_in, s_h, s_w, h, n_layers, _stream(z.device))
+            z.data_ptr(), syn.data_ptr(), *_fwd_weights(params, slabs),
+            out.data_ptr(), b, h_in, w_in, s_h, s_w, h, n_layers,
+            _stream(z.device))
     _raise_on(rc, "decode_int_fwd")
     launches["decode_int_fwd"] += 1
     return out
@@ -403,12 +421,12 @@ def _check_ratio(s_h: int, s_w: int) -> None:
 
 
 def decode_window_fwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
-                      params: dict) -> torch.Tensor:
+                      params: dict, slabs=None) -> torch.Tensor:
     """Decode the HR window whose queries read LR rows ``rows`` and LR
     columns ``cols`` (``index_vector`` tensors on z's device).
 
     z (B, H_in, W_in, L*H), syn (len(rows), len(cols), 3) -> (B,
-    len(rows), len(cols), 3) float32.
+    len(rows), len(cols), 3) float32. ``slabs`` as for ``decode_int_fwd``.
     """
     _check_index(rows, z, "rows")
     _check_index(cols, z, "cols")
@@ -422,8 +440,8 @@ def decode_window_fwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     with torch.cuda.device(z.device):
         rc = _library().launch_decode_window_fwd(
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),
-            cols.data_ptr(), *_weights(params), out.data_ptr(), b, h_in,
-            w_in, h_win, w_win, h, n_layers, _stream(z.device))
+            cols.data_ptr(), *_fwd_weights(params, slabs), out.data_ptr(),
+            b, h_in, w_in, h_win, w_win, h, n_layers, _stream(z.device))
     _raise_on(rc, "decode_window_fwd")
     launches["decode_window_fwd"] += 1
     return out
@@ -440,8 +458,8 @@ def tf32_split(w: torch.Tensor) -> tuple:
 
 
 def chain_b_operands(wcat: torch.Tensor) -> tuple:
-    """The B operands of the backward chain kernel's wgmma products
-    (``decoder_bwd.cuh``'s ChainTiling), as (L, K, passes, 2, n) views of
+    """The B operands of the chain kernels' wgmma products
+    (``hopper_chain.cuh``'s ChainTiling), as (L, K, passes, 2, n) views of
     ``wcat``: warpgroup wg owns hidden columns [wg h/2, (wg + 1) h/2).
     Forward (B = [Wkq | Wq], K = h): pass p of warpgroup wg reads the k and
     then the a columns of its jb = h/2/passes columns from wg h/2 + p jb.
@@ -454,6 +472,12 @@ def chain_b_operands(wcat: torch.Tensor) -> tuple:
            .permute(0, 1, 4, 3, 2, 5).reshape(n_layers, h, passes, 2, 2 * jb))
     dq = wcat.transpose(1, 2).reshape(n_layers, 2 * h, 1, 2, h // 2)
     return fwd, dq
+
+
+def forward_slabs(wcat: torch.Tensor) -> torch.Tensor:
+    """The forward chain's split B slabs of ``wcat`` (both forward
+    kernels, and the backward's recompute)."""
+    return mma_b_slabs(chain_b_operands(wcat.detach())[0])
 
 
 def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
@@ -474,10 +498,11 @@ def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
 
 
 def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
-                 params: dict) -> tuple:
+                 params: dict, fwd_slabs) -> tuple:
     """dz, the flat weight-gradient vector with its per-key views (the
     layout of ``decoder_bwd::Plan``), the split wgmma B slabs of [Wkq | Wq]
-    and of its transpose, and the scratch buffer of one backward call."""
+    (``fwd_slabs`` unless None) and of its transpose, and the scratch
+    buffer of one backward call."""
     dev = z.device
     sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
              "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
@@ -491,8 +516,9 @@ def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
     n_scratch = _library("decoder_bwd").decoder_bwd_scratch_floats(
         n_query, h, n_layers)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    slabs = tuple(mma_b_slabs(w)
-                  for w in chain_b_operands(params["wcat"].detach()))
+    wcat = params["wcat"].detach()
+    slabs = (forward_slabs(wcat) if fwd_slabs is None else fwd_slabs,
+             mma_b_slabs(chain_b_operands(wcat)[1]))
     return torch.empty_like(z), flat, grads, slabs, scratch
 
 
@@ -503,9 +529,10 @@ def _bwd_weights(params: dict, slabs: tuple) -> list:
 
 
 def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
-                   params: dict, g: torch.Tensor) -> tuple:
+                   params: dict, g: torch.Tensor, slabs=None) -> tuple:
     """VJP of ``decode_int_fwd`` for the upstream gradient ``g`` (B, H_out,
-    W_out, 3): (dz like z, {w0, b0, wcat, bcat, wl, bl} gradients)."""
+    W_out, 3): (dz like z, {w0, b0, wcat, bcat, wl, bl} gradients).
+    ``slabs``: the forward's ``forward_slabs`` where the caller has them."""
     if z.device.type == "cpu":
         return decode_int_bwd_ref(z, syn, s_h, s_w, params, g)
     b, h_in, w_in, _ = z.shape
@@ -514,7 +541,7 @@ def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
     h, n_layers = _check_common(z, syn, params, (h_out, w_out))
     _check_grad(g, z, (b, h_out, w_out, 3))
     dz, flat, grads, slabs, scratch = _bwd_buffers(
-        z, b * h_out * w_out, h, n_layers, params)
+        z, b * h_out * w_out, h, n_layers, params, slabs)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_int_bwd(
             z.data_ptr(), syn.data_ptr(), *_bwd_weights(params, slabs),
@@ -527,10 +554,10 @@ def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
 
 
 def decode_window_bwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
-                      params: dict, g: torch.Tensor) -> tuple:
+                      params: dict, g: torch.Tensor, slabs=None) -> tuple:
     """VJP of ``decode_window_fwd`` for ``g`` (B, len(rows), len(cols),
     3): (dz like z, weight gradients). LR pixels that no query of the
-    window reads get zero."""
+    window reads get zero. ``slabs`` as for ``decode_int_bwd``."""
     _check_index(rows, z, "rows")
     _check_index(cols, z, "cols")
     if z.device.type == "cpu":
@@ -540,7 +567,7 @@ def decode_window_bwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     h, n_layers = _check_common(z, syn, params, (h_win, w_win))
     _check_grad(g, z, (b, h_win, w_win, 3))
     dz, flat, grads, slabs, scratch = _bwd_buffers(
-        z, b * h_win * w_win, h, n_layers, params)
+        z, b * h_win * w_win, h, n_layers, params, slabs)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_window_bwd(
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),

@@ -94,9 +94,8 @@ class ImplicitDecoder(nn.Module):
 
         - mode 3 with the polynomial sine and uniform hidden widths (the
           chain the kernels compute);
-        - hidden in ``KERNEL_HIDDEN`` (32, 64, 256): each lane of a
-          warp owns hidden/32 columns, a register tile sized at compile
-          time;
+        - hidden in ``KERNEL_HIDDEN`` (32, 64, 256): one kernel instance
+          each, its tiling sized at compile time;
         - fp32 features (the kernels are fp32 only).
         """
         if self.use_fused is False:
