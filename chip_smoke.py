@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port (``tpu_diinn_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bf16-cpu-witness PATH   # phase 5d's witness
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and a checkout of this
 repository (it reads ``results/flagship_weights.npz`` and ``data/``).
@@ -13,7 +14,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    from ``cuobjdump -sass``, each kernel's count of tensor-core (``HMMA``,
    ``HGMMA``) and fp32 ``FFMA`` instructions; every instance of the
    forward kernel must show ``HGMMA``, and the backward's chain and
-   weight-gradient kernels tensor-core instructions;
+   weight-gradient kernels tensor-core instructions; every bf16 instance
+   of the three (``<...,Bf16>``) must show ``HGMMA``;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
    on main-path shapes, held against their plain PyTorch versions (max abs
    error <= 1e-4: fp32-level sums in another order over K <= 512; the
@@ -34,7 +36,18 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    1e-5 of zero (``relu_margin``: there two correct fp32 implementations
    may take different sides of the mask). The backward's products run in
    3xTF32 on the tensor cores, which keeps this fp32 tolerance. A second
-   call must agree bit for bit (the weight-gradient sum is deterministic);
+   call must agree bit for bit (the weight-gradient sum is deterministic).
+   Phases 3 and 3b hold each kernel's bf16 instance too, at the fp32 rows'
+   shapes, on z and the weights rounded to bf16 (the syn grid built in
+   bf16), against its plain bf16 version: the forwards to max abs error
+   <= 2e-3 (the outputs are about 0.1; both round q to bf16 after fp32
+   sums in different orders, and a q element that rounds to the other
+   neighbour moves an output by about 6e-5), the backwards to 1e-2 of the
+   largest magnitude with the upstream gradient zeroed within 1e-3 of a
+   relu's switch point of the bf16 chain; and each output's error against
+   the fp32 chain on the same inputs to at most 1.5x the plain bf16
+   version's (+ 1e-5 of the largest magnitude); with ``bound_ms`` at the
+   bf16 tensor-core peak;
 4. slice, eval: the flagship benchmark evaluation through the benchmark
    CLI's ``main`` (4 sets x scales {3.14, 4, 8}); both forward kernels
    must have been launched, and all 36 metrics must match the committed
@@ -63,8 +76,29 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       the next batch;
    c. ``cli.train``'s ``main`` at scales [2, 2.5]: 5 steps, each launching
       the window kernels once, finite losses;
+4b. slice, eval in bf16: Set5 at {3.14, 4, 8} through the benchmark CLI
+   with ``model.dtype=bfloat16``; both forward kernels launched in bf16
+   and no fp32 instance; the 9 metrics against the committed JAX-CPU bf16
+   oracle's fused route (Pallas interpret mode), each within the larger of
+   twice the gap between JAX's two bf16 routes (XLA and fused) on that
+   metric and phase 4's fp32 tolerance;
+5d. slice, training in bf16: three flagship steps from the committed
+   weights against the bf16 oracle's fused route, each reading within the
+   larger of phase 5a's fp32 bound and twice its largest gap to the
+   oracle among its witnesses: the port's own three steps on the CPU
+   (plain decoder versions, the kernels' rounding points; committed,
+   made by ``python3 chip_smoke.py --bf16-cpu-witness PATH``), and for
+   the step-1 loss, which only the forward sets, JAX's XLA route too; then ``cli.train``'s ``main`` with ``model.dtype=bfloat16``
+   for 20 steps, ``decode_int_bwd`` launched 60 times in bf16 and no fp32
+   instance, with 5b's split; and a ``torch.profiler`` read of 5 bf16
+   steps: device time by kernel group and the device's idle share;
+5e. ``cli.train``'s ``main`` in bf16 at scales [2, 2.5]: 5 steps, every
+   bf16 instance launched 5 times, no fp32 instance;
+5f. the bench: ``python -m tpu_diinn_torch.bench``'s JSON line, printed on
+   a line of its own;
 6. a ``kernels`` JSON line (each row with its times at every training
-   shape under ``train_shapes``), and last the device JSON line.
+   shape under ``train_shapes``; the bf16 instances as rows of their own,
+   ``dtype`` bfloat16), and last the device JSON line.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA it
 exits non-zero before printing any result.
@@ -85,6 +119,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu_diinn_torch import bench
 from tpu_diinn_torch.cli import benchmarks
 from tpu_diinn_torch.cli import train as train_cli
 from tpu_diinn_torch.config.config import load_config
@@ -94,12 +129,15 @@ from tpu_diinn_torch.data import pipeline
 from tpu_diinn_torch.kernels import build
 from tpu_diinn_torch.kernels import decoder_fused as K
 from tpu_diinn_torch.nn.registry import make_net
+from tpu_diinn_torch.train import flops
 from tpu_diinn_torch.train import loop
 from tpu_diinn_torch.train.checkpoint import (load_params_npz,
                                               state_dict_from_jax)
 
 ORACLE = "tpu_diinn_torch/testdata/flagship_benchmarks_jax_cpu.json"
 TRAIN_ORACLE = "tpu_diinn_torch/testdata/flagship_train_jax_cpu.json"
+BF16_ORACLE = "tpu_diinn_torch/testdata/flagship_bf16_jax_cpu.json"
+BF16_WITNESS = "tpu_diinn_torch/testdata/flagship_bf16_port_cpu.json"
 TPU_LOG = "results/benchmarks_flagship_r5b.log"
 WEIGHTS = "results/flagship_weights.npz"
 WORK = Path("build/chip_smoke")
@@ -123,6 +161,11 @@ PSNR_TOL, SSIM_TOL = 2e-3, 1e-4
 N_METRICS = 36             # 4 sets x 3 scales x PSNR/SSIM/LR-PSNR
 HIDDEN, LAYERS = 256, 4
 TRAIN_STEPS, FRACTIONAL_STEPS = 20, 5
+BF16 = torch.bfloat16
+KERNEL_TOL_BF16 = 2e-3     # bf16 forward: max abs error
+BWD_TOL_BF16 = 1e-2        # bf16 backward: max abs error / largest magnitude
+MARGIN_BF16 = 1e-3         # relu pre-activation margin of the bf16 chain
+FP32_RATIO = 1.5           # bf16 kernel vs fp32 chain, over plain bf16's
 
 
 def phase(label: str, t_start: float, **fields) -> None:
@@ -255,13 +298,38 @@ def sass_counts(lib: Path) -> dict:
     return counts
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """Per kernel, ptxas's registers and spill bytes (stores, loads), from
+    the ``-Xptxas -v`` log of a build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {})["spill"] = [int(m.group(1)),
+                                                 int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def kernel_name(mangled: str) -> str:
-    """``decode_bwd_chain_kernel<8,0>`` from its mangled name."""
-    m = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[a-z]+\d+E)+E)?)",
-                  mangled)
+    """``decode_bwd_chain_kernel<8,0,Bf16>`` from its mangled name (the
+    precision policy, hopper_chain::Tf32 or Bf16, as its last argument)."""
+    m = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[a-z]+\d+E|"
+                  r"N12hopper_chain4(?:Tf32|Bf16)E)+E)?)", mangled)
     if not m:
         return mangled
-    args = re.findall(r"L[a-z]+(\d+)E", m.group(2))
+    args = [a or b for a, b in re.findall(
+        r"L[a-z]+(\d+)E|hopper_chain4(Tf32|Bf16)E", m.group(2))]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -341,11 +409,121 @@ def profile_ms(fn, reps: int = 3) -> dict:
     return out
 
 
-def eval_kernels(dev, peaks, t) -> dict:
-    """Phase 3: the eval shapes of rows 1 and 2."""
+def bound_bf16(flop: float, nbytes: float, peaks, peak_bf16: float
+               ) -> dict:
+    """The least time for a bf16 instance's work: its matmul FLOP at the
+    card's bf16 tensor-core peak or its bytes at the HBM rate."""
+    t_bytes = nbytes / peaks[1] * 1e3
+    t_ops = flop / peak_bf16 * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def as_bf16(z: torch.Tensor, p: dict) -> tuple:
+    """z and the weights of ``p`` rounded to bf16 (the biases fp32), as
+    the bf16 mode hands them to the kernels; and the same values in fp32,
+    the fp32 chain's inputs."""
+    zb = z.to(BF16)
+    pb = {k: v.to(BF16) if k in K.WEIGHT_KEYS else v for k, v in p.items()}
+    return zb, pb, zb.float(), {k: v.float() for k, v in pb.items()}
+
+
+def check_fwd_bf16(name, fn, ref, ref32, n_query, nbytes, peaks, peak_bf16,
+                   shape, reps=20) -> dict:
+    """A bf16 forward instance against its plain bf16 version (``ref``)
+    and, with it, against the fp32 chain on the same inputs (``ref32``)."""
+    out = fn()
+    torch.cuda.synchronize()
+    want, want32 = ref(), ref32()
+    err = (out - want).abs().max().item()
+    if not (math.isfinite(err) and err <= KERNEL_TOL_BF16):
+        raise AssertionError(f"{name} bf16 {shape}: max abs error {err} > "
+                             f"{KERNEL_TOL_BF16}")
+    k32 = (out - want32).abs().max().item()
+    p32 = (want - want32).abs().max().item()
+    if not k32 <= FP32_RATIO * p32 + 1e-5 * want32.abs().max().item():
+        raise AssertionError(f"{name} bf16 {shape}: error against the fp32 "
+                             f"chain {k32} > {FP32_RATIO} x plain bf16's "
+                             f"{p32}")
+    if not torch.equal(out, fn()):
+        raise AssertionError(f"{name} bf16 {shape}: two calls differ")
+    del out, want, want32
+    ms = time_ms(fn, reps)
+    plain_ms = time_ms(ref, 3)
+    flop = n_query * query_flop(HIDDEN, LAYERS)
+    return {"name": f"{name}_bf16", "dtype": "bfloat16", "shape": shape,
+            "max_abs_err": err, "err_vs_fp32_chain": k32,
+            "plain_err_vs_fp32_chain": p32, "deterministic": True,
+            "ms": ms, "plain_ms": plain_ms,
+            **bound_bf16(flop, nbytes, peaks, peak_bf16), "library_ms": None,
+            "achieved_tflops": flop / ms / 1e9,
+            "ms_by_device_kernel": profile_ms(fn)}
+
+
+def check_bwd_bf16(name, fn, ref, ref32, n_query, nbytes, peaks, peak_bf16,
+                   shape, masked, reps=5) -> dict:
+    """A bf16 backward instance against its plain bf16 version and the
+    fp32 chain's backward, output by output (dz and each weight
+    gradient)."""
+    dz, grads = fn()
+    torch.cuda.synchronize()
+    (dz_ref, grads_ref), (dz32, grads32) = ref(), ref32()
+    errs, rel, vs32 = {}, {}, {}
+    for key, got, want, w32 in [("dz", dz, dz_ref, dz32)] + [
+            (k, grads[k], grads_ref[k], grads32[k]) for k in K.PARAM_KEYS]:
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[key], rel[key] = err, err / scale
+        if not (math.isfinite(err) and err <= BWD_TOL_BF16 * scale):
+            raise AssertionError(f"{name} bf16 {shape} {key}: max abs error "
+                                 f"{err} > {BWD_TOL_BF16} x {scale}")
+        k32 = (got - w32).abs().max().item()
+        p32 = (want - w32).abs().max().item()
+        vs32[key] = {"kernel": k32, "plain": p32}
+        if not k32 <= FP32_RATIO * p32 + 1e-5 * scale:
+            raise AssertionError(f"{name} bf16 {shape} {key}: error against "
+                                 f"the fp32 chain {k32} > {FP32_RATIO} x "
+                                 f"plain bf16's {p32}")
+    if dz.dtype != BF16 or any(grads[k].dtype != torch.float32
+                               for k in K.PARAM_KEYS):
+        raise AssertionError(f"{name} bf16: dz {dz.dtype}, grads "
+                             f"{[grads[k].dtype for k in K.PARAM_KEYS]}")
+    if grads["bcat"][:, :HIDDEN].abs().max().item() != 0.0:
+        raise AssertionError(f"{name} bf16: the kq half of dbcat is not zero")
+    dz2, grads2 = fn()
+    if not (torch.equal(dz, dz2) and all(
+            torch.equal(grads[k], grads2[k]) for k in K.PARAM_KEYS)):
+        raise AssertionError(f"{name} bf16 {shape}: two calls differ")
+    del dz, grads, dz_ref, grads_ref, dz2, grads2, dz32, grads32
+    ms = time_ms(fn, reps)
+    plain_ms = time_ms(ref, 2)
+    flop = n_query * query_flop_bwd(HIDDEN, LAYERS)
+    return {"name": f"{name}_bf16", "dtype": "bfloat16", "shape": shape,
+            "max_abs_err": max(errs.values()), "max_rel_err": rel,
+            "err_vs_fp32_chain": vs32, "masked_queries": masked,
+            "deterministic": True, "ms": ms, "plain_ms": plain_ms,
+            **bound_bf16(flop, nbytes, peaks, peak_bf16), "library_ms": None,
+            "achieved_tflops": flop / ms / 1e9,
+            "ms_by_device_kernel": profile_ms(fn)}
+
+
+def masked_grad_bf16(zb, syn, rows, cols, pb, seed: int):
+    """A seeded upstream gradient for a bf16 backward, zero on the queries
+    within MARGIN_BF16 of a relu's switch point of the bf16 chain."""
+    keep = relu_margin(zb, syn, rows, cols, pb) > MARGIN_BF16
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn((*keep.shape, 3), generator=gen).to(zb.device)
+    return (g * keep[..., None]).contiguous(), int((~keep).sum().item())
+
+
+def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
+    """Phase 3: the eval shapes of rows 1 and 2, fp32 and bf16."""
     gen = torch.Generator().manual_seed(0)
     p = flagship_params(gen, dev)
     w_bytes = sum(v.numel() * 4 for v in p.values())
+    wb_bytes = sum(v.numel() * (2 if k in K.WEIGHT_KEYS else 4)
+                   for k, v in p.items())
     c_all = HIDDEN * LAYERS
     checks = {}
     for h_in, s in ((64, 4), (32, 8)):
@@ -361,6 +539,19 @@ def eval_kernels(dev, peaks, t) -> dict:
             f"LR {h_in}x{h_in} x{s}")
         phase("kernel", t, **res)
         checks.setdefault("decode_int_fwd", []).append(res)
+        zb, pb, z32, p32 = as_bf16(z, p)
+        synb = grids.syn_input_grid((h_in, h_in), (h_in * s, h_in * s),
+                                    dtype=BF16, device=dev).float()
+        res = check_fwd_bf16(
+            "decode_int_fwd",
+            lambda: K.decode_int_fwd(zb, synb, s, s, pb),
+            lambda: K.decode_int_fwd_ref(zb, synb, s, s, pb),
+            lambda: K.decode_int_fwd_ref(z32, synb, s, s, p32), nq,
+            zb.numel() * 2 + synb.numel() * 4 + wb_bytes + nq * 12, peaks,
+            peak_bf16, f"LR {h_in}x{h_in} x{s}")
+        phase("kernel", t, **res)
+        checks.setdefault("decode_int_fwd_bf16", []).append(res)
+        del zb, z32, synb
     # x3.14 on a 256x256 image: LR 82x82, chunks of 30000 // 256 = 117
     # columns (the second chunk, as the chunked eval decodes it)
     h_in, h_out, lo, hi = 82, 256, 117, 234
@@ -382,14 +573,30 @@ def eval_kernels(dev, peaks, t) -> dict:
         peaks, f"LR {h_in}x{h_in} -> {h_out}x{h_out}, columns {lo}:{hi}")
     phase("kernel", t, **res)
     checks["decode_window_fwd"] = [res]
+    zb, pb, z32, p32 = as_bf16(z, p)
+    synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
+                                device=dev)[:, lo:hi].float().contiguous()
+    res = check_fwd_bf16(
+        "decode_window_fwd",
+        lambda: K.decode_window_fwd(zb, synb, rows_v, cols_v, pb),
+        lambda: K.decode_window_fwd_ref(zb, synb, rows, cols, pb),
+        lambda: K.decode_window_fwd_ref(z32, synb, rows, cols, p32), nq,
+        touched // 2 + synb.numel() * 4 + wb_bytes + nq * 12
+        + (rows.size + cols.size) * 4, peaks, peak_bf16,
+        f"LR {h_in}x{h_in} -> {h_out}x{h_out}, columns {lo}:{hi}")
+    phase("kernel", t, **res)
+    checks["decode_window_fwd_bf16"] = [res]
     return checks
 
 
-def train_kernels(dev, peaks, t, checks: dict) -> None:
-    """Phase 3b: rows 3-5 at the flagship training shapes."""
+def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
+    """Phase 3b: rows 3-5 at the flagship training shapes, fp32 and
+    bf16."""
     gen = torch.Generator().manual_seed(1)
     p = flagship_params(gen, dev)
     w_bytes = sum(v.numel() * 4 for v in p.values())
+    wb_bytes = sum(v.numel() * (2 if k in K.WEIGHT_KEYS else 4)
+                   for k, v in p.items())
     b, h_in = 4, 48
     z = torch.randn((b, h_in, h_in, HIDDEN * LAYERS), generator=gen).to(dev)
     z_bytes = z.numel() * 4
@@ -416,6 +623,30 @@ def train_kernels(dev, peaks, t, checks: dict) -> None:
         phase("train_kernel", t, **res)
         checks.setdefault("decode_int_bwd", []).append(res)
         del syn, g
+        zb, pb, z32, p32 = as_bf16(z, p)
+        synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out),
+                                    dtype=BF16, device=dev).float()
+        shape = f"train B {b} LR {h_in}x{h_in} x{s}"
+        res = check_fwd_bf16(
+            "decode_int_fwd",
+            lambda: K.decode_int_fwd(zb, synb, s, s, pb),
+            lambda: K.decode_int_fwd_ref(zb, synb, s, s, pb),
+            lambda: K.decode_int_fwd_ref(z32, synb, s, s, p32), nq,
+            z_bytes // 2 + synb.numel() * 4 + wb_bytes + nq * 12, peaks,
+            peak_bf16, shape, reps=10)
+        phase("train_kernel", t, **res)
+        checks.setdefault("decode_int_fwd_bf16_train", []).append(res)
+        g, masked = masked_grad_bf16(zb, synb, rows, rows, pb, 10 + s)
+        res = check_bwd_bf16(
+            "decode_int_bwd",
+            lambda: K.decode_int_bwd(zb, synb, s, s, pb, g),
+            lambda: K.decode_int_bwd_ref(zb, synb, s, s, pb, g),
+            lambda: K.decode_int_bwd_ref(z32, synb, s, s, p32, g), nq,
+            z_bytes + synb.numel() * 4 + 2 * wb_bytes + nq * 12, peaks,
+            peak_bf16, shape, masked)
+        phase("train_kernel", t, **res)
+        checks.setdefault("decode_int_bwd_bf16", []).append(res)
+        del zb, z32, synb, g
     # x2.5: LR 48 -> HR 120, one window over the whole grid
     h_out = 120
     rows = grids.nearest_exact_indices(h_in, h_out)
@@ -440,6 +671,29 @@ def train_kernels(dev, peaks, t, checks: dict) -> None:
         + 2 * rows.size * 4, peaks, shape, masked)
     phase("train_kernel", t, **res)
     checks["decode_window_bwd"] = [res]
+    del g
+    zb, pb, z32, p32 = as_bf16(z, p)
+    synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
+                                device=dev).float()
+    res = check_fwd_bf16(
+        "decode_window_fwd",
+        lambda: K.decode_window_fwd(zb, synb, rows_v, rows_v, pb),
+        lambda: K.decode_window_fwd_ref(zb, synb, rows, rows, pb),
+        lambda: K.decode_window_fwd_ref(z32, synb, rows, rows, p32), nq,
+        z_bytes // 2 + synb.numel() * 4 + wb_bytes + nq * 12
+        + 2 * rows.size * 4, peaks, peak_bf16, shape, reps=10)
+    phase("train_kernel", t, **res)
+    checks["decode_window_fwd_bf16_train"] = [res]
+    g, masked = masked_grad_bf16(zb, synb, rows, rows, pb, 20)
+    res = check_bwd_bf16(
+        "decode_window_bwd",
+        lambda: K.decode_window_bwd(zb, synb, rows_v, rows_v, pb, g),
+        lambda: K.decode_window_bwd_ref(zb, synb, rows, rows, pb, g),
+        lambda: K.decode_window_bwd_ref(z32, synb, rows, rows, p32, g), nq,
+        z_bytes + synb.numel() * 4 + 2 * wb_bytes + nq * 12
+        + 2 * rows.size * 4, peaks, peak_bf16, shape, masked)
+    phase("train_kernel", t, **res)
+    checks["decode_window_bwd_bf16"] = [res]
 
 
 def relu_margin(z: torch.Tensor, syn: torch.Tensor, rows, cols,
@@ -452,8 +706,14 @@ def relu_margin(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     different orders take different sides, and that query's gradient
     differs by a whole term. A comparison of two backward implementations
     therefore zeroes the upstream gradient of the queries whose margin is
-    below its tolerance (layer 0's mask reads z itself and is exact)."""
+    below its tolerance (layer 0's mask reads z itself and is exact). With
+    bf16 weights (the bf16 instances) syn and q are rounded to bf16 before
+    each product, as the kernels round them."""
     f64 = torch.float64
+    cdt = params["w0"].dtype
+
+    def rnd(x):
+        return x if cdt == torch.float32 else x.to(cdt).to(f64)
     b = z.shape[0]
     h = params["w0"].shape[1]
     n_layers = params["wcat"].shape[0] + 1
@@ -462,7 +722,7 @@ def relu_margin(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     zt = z[:, r][:, :, c]
     hq, wq = zt.shape[1], zt.shape[2]
     zt = zt.reshape(-1, zt.shape[-1]).to(f64)
-    syn64 = syn.to(f64).expand(b, hq, wq, 3).reshape(-1, 3)
+    syn64 = rnd(syn.to(f64).expand(b, hq, wq, 3).reshape(-1, 3))
     p = {k: v.detach().to(f64) for k, v in params.items()}
 
     def sin(x):     # the polynomial sine of core/fastmath, in float64
@@ -472,14 +732,14 @@ def relu_margin(z: torch.Tensor, syn: torch.Tensor, rows, cols,
             acc = acc * y * y + coeff
         return y * acc
 
-    q = torch.relu(zt[:, :h]) * sin(syn64 @ p["w0"] + p["b0"])
+    q = rnd(torch.relu(zt[:, :h]) * sin(syn64 @ p["w0"] + p["b0"]))
     margin = torch.full((zt.shape[0],), float("inf"), dtype=f64,
                         device=z.device)
     for i in range(1, n_layers):
         both = q @ p["wcat"][i - 1]
         pre = both[:, :h] + zt[:, i * h:(i + 1) * h]
         margin = torch.minimum(margin, pre.abs().amin(dim=1))
-        q = torch.relu(pre) * sin(both[:, h:] + p["bcat"][i - 1, h:])
+        q = rnd(torch.relu(pre) * sin(both[:, h:] + p["bcat"][i - 1, h:]))
     return margin.reshape(b, hq, wq)
 
 
@@ -636,9 +896,12 @@ def run_train_cli(args: list, tag: str):
     return state, out, records
 
 
-def train_slice(t) -> dict:
-    """Phase 5b: the flagship trainer from the seeded init, with a
-    per-step split read from CUDA events."""
+def train_slice(t, bf16: bool = False) -> dict:
+    """Phase 5b (5d's second half with ``bf16``: ``model.dtype=bfloat16``):
+    the flagship trainer from the seeded init, with a per-step split read
+    from CUDA events."""
+    dtype = BF16 if bf16 else torch.float32
+    extra = ["model.dtype=bfloat16"] if bf16 else []
     spans = {k: [] for k in ("step", "fwd", "bwd", "optimizer")}
     host_gaps, in_step, last_exit = [], [False], [None]
 
@@ -675,13 +938,16 @@ def train_slice(t) -> dict:
             stack.enter_context(patched(K, name, span_recorder(
                 spans["bwd"], active)))
         state, out, records = run_train_cli(
-            ["--max-steps", str(TRAIN_STEPS), "trainer.limit_val_images=2"],
-            "train")
+            ["--max-steps", str(TRAIN_STEPS), "trainer.limit_val_images=2",
+             *extra], "train_bf16" if bf16 else "train")
     torch.cuda.synchronize()
     counts = dict(K.launches)
     n = TRAIN_STEPS
-    if counts["decode_int_bwd"] != 3 * n or counts["decode_int_fwd"] < 3 * n:
+    if (counts[K.launch_key("decode_int_bwd", dtype)] != 3 * n
+            or counts[K.launch_key("decode_int_fwd", dtype)] < 3 * n):
         raise AssertionError(f"launches over {n} steps: {counts}")
+    if bf16 and any(counts[k] for k in K.KERNELS):
+        raise AssertionError(f"an fp32 instance ran in bf16 mode: {counts}")
     val = records[-1]
     if not (state.step == n and math.isfinite(val["train_loss"])
             and math.isfinite(val["val_loss"])):
@@ -699,7 +965,8 @@ def train_slice(t) -> dict:
     fwd_ms = float(np.sum(per["fwd"][3:]) / (n - 1))
     bwd_ms = float(np.sum(per["bwd"][3:]) / (n - 1))
     opt_ms = float(np.mean(per["optimizer"][steady]))
-    phase("slice_train", t, steps=state.step, launches=counts,
+    phase("slice_train_bf16" if bf16 else "slice_train", t,
+          steps=state.step, launches=counts,
           train_loss=val["train_loss"], val_loss=val["val_loss"],
           val_psnr={k: v for k, v in val.items() if k.startswith("val_psnr")},
           steps_per_s=val["steps_per_s"], checkpoint=str(out / "last.npz"),
@@ -712,17 +979,23 @@ def train_slice(t) -> dict:
     return counts
 
 
-def train_fractional(t) -> dict:
-    """Phase 5c: scales [2, 2.5] through the window kernels."""
+def train_fractional(t, bf16: bool = False) -> dict:
+    """Phase 5c (5e with ``bf16``): scales [2, 2.5] through the window
+    kernels; every instance of the run's dtype launched once a step, none
+    of the other."""
+    dtype = BF16 if bf16 else torch.float32
     K.reset_launches()
     state, _, records = run_train_cli(
         ["--max-steps", str(FRACTIONAL_STEPS), "data.train_scales=[2,2.5]",
          "trainer.log_every_n_steps=1",
-         "trainer.check_val_every_n_epoch=1000"], "fractional")
+         "trainer.check_val_every_n_epoch=1000",
+         *(["model.dtype=bfloat16"] if bf16 else [])],
+        "fractional_bf16" if bf16 else "fractional")
     torch.cuda.synchronize()
     counts = dict(K.launches)
     n = FRACTIONAL_STEPS
-    want = {name: n for name in K.launches}
+    mine = {K.launch_key(name, dtype) for name in K.KERNELS}
+    want = {key: n if key in mine else 0 for key in K.launches}
     if counts != want:
         raise AssertionError(f"launches over {n} steps: {counts}, "
                              f"expected {want}")
@@ -730,12 +1003,213 @@ def train_fractional(t) -> dict:
     if not (state.step == n and len(losses) == n
             and all(math.isfinite(v) for v in losses)):
         raise AssertionError(f"{state.step} steps, losses {losses}")
-    phase("slice_train_fractional", t, steps=state.step, launches=counts,
+    phase("slice_train_fractional_bf16" if bf16 else
+          "slice_train_fractional", t, steps=state.step, launches=counts,
           train_loss=losses)
     return counts
 
 
-def main() -> int:
+def oracle_bound(want: float, other: float, floor: float) -> float:
+    """The bound on a bf16 reading: twice the gap between the oracle's
+    reading (``want``) and a witness's (``other``), a second correct bf16
+    implementation of the same function, and no tighter than the fp32
+    phases' ``floor``."""
+    return max(2.0 * abs(other - want), floor)
+
+
+def eval_slice_bf16(t) -> dict:
+    """Phase 4b: Set5 at {3.14, 4, 8} in bf16 through the benchmark CLI,
+    against the JAX-CPU bf16 oracle."""
+    spans = {name: [] for name in FWD}
+    K.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for name in FWD:
+            stack.enter_context(patched(K, name, span_recorder(spans[name])))
+        results = benchmarks.main(["model.dtype=bfloat16", "--ckpt_path",
+                                   WEIGHTS, "--device", "cuda",
+                                   "--testsets", "Set5"])
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    for name in FWD:
+        if counts[K.launch_key(name, BF16)] <= 0:
+            raise AssertionError(f"{name} bf16 was never launched: {counts}")
+    if any(counts[k] for k in K.KERNELS):
+        raise AssertionError(f"an fp32 instance ran in bf16 mode: {counts}")
+    with open(BF16_ORACLE) as f:
+        oracle = json.load(f)["set5"]
+    deltas, bounds = {}, {}
+    for key, want in oracle["fused_interpret"].items():
+        got = results["Set5"][key]
+        bnd = oracle_bound(want, oracle["xla"][key],
+                           SSIM_TOL if "ssim" in key else PSNR_TOL)
+        d = abs(got - want)
+        if not (math.isfinite(got) and d <= bnd):
+            raise AssertionError(f"Set5 bf16 {key}: {got} vs oracle {want} "
+                                 f"(|d| {d} > {bnd})")
+        deltas[key], bounds[key] = d, bnd
+    if len(deltas) != 9:
+        raise AssertionError(f"expected 9 metrics, compared {len(deltas)}")
+    phase("slice_eval_bf16", t, launches=counts,
+          decoder_call_seconds={n: span_seconds(v)
+                                for n, v in spans.items()},
+          metrics=results["Set5"], delta_vs_oracle=deltas,
+          bound=bounds)
+    return counts
+
+
+def bf16_steps(device) -> list:
+    """Three flagship bf16 steps from the committed weights on the first
+    three batches of epoch 0, on ``device`` (the CPU: the plain decoder
+    versions); each step's loss and grad norm."""
+    cfg = load_config(None, ["model.dtype=bfloat16"])
+    train_ds, _ = loop.make_datasets(cfg)
+    it = pipeline.train_batches(
+        train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
+        repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    flat, _ = load_params_npz(WEIGHTS)
+    spe = len(train_ds) * cfg.data.trainsets_repeat // cfg.data.batch_size
+    state = loop.init_state(cfg, spe, device=device, params=flat)
+    step = loop.make_train_step(state)
+    return [{k: float(v) for k, v in step(loop.to_device(b, device)).items()}
+            for b in batches]
+
+
+def bf16_cpu_witness(path: str) -> None:
+    """``--bf16-cpu-witness PATH``: phase 5d's three steps by the port on
+    the CPU (the plain decoder versions, the kernels' rounding points;
+    oneDNN's bf16 convolutions), written to PATH. No card needed; at
+    flagship size, run it on a machine with the memory for it."""
+    t0 = time.perf_counter()
+    steps = bf16_steps(torch.device("cpu"))
+    rec = {"weights": WEIGHTS, "dtype": "bfloat16",
+           "platform": "the port (tpu_diinn_torch) on the CPU, plain "
+                       "decoder versions",
+           "made_by": "python3 chip_smoke.py --bf16-cpu-witness PATH",
+           "torch": torch.__version__, "threads": torch.get_num_threads(),
+           "batches": "first 3 of epoch 0, DIV2K[0:160)", "steps": steps,
+           "seconds": time.perf_counter() - t0}
+    Path(path).write_text(json.dumps(rec, indent=1) + "\n")
+    print(json.dumps(rec), flush=True)
+
+
+def train_parity_bf16(dev, t) -> dict:
+    """Phase 5d, first half: three flagship bf16 steps from the committed
+    weights against the JAX-CPU bf16 oracle's fused route. Each reading's
+    witnesses are the correct bf16 implementations of it besides the
+    oracle: the port's own steps on the CPU (``BF16_WITNESS``), and for
+    the step-1 loss, a forward-only reading, also JAX's XLA route (whose
+    bias gradients are summed in bf16, ROADMAP C3, so it witnesses no
+    gradient reading); the bound is twice the largest witness gap."""
+    with open(BF16_ORACLE) as f:
+        steps = json.load(f)["steps"]
+    want, xla = steps["fused_interpret"], steps["xla"]
+    with open(BF16_WITNESS) as f:
+        cpu = json.load(f)["steps"]
+    K.reset_launches()
+    got = bf16_steps(dev)
+    counts = dict(K.launches)
+    rel, bounds = [], []
+    for i, (g, w, c) in enumerate(zip(got, want, cpu)):
+        r, b = {}, {}
+        for key in ("loss", "grad_norm"):
+            floor = ((LOSS_TOL_1 if key == "loss" else NORM_TOL_1) if i == 0
+                     else STEP_TOL)
+            witnesses = [c] + ([xla[i]] if (i, key) == (0, "loss") else [])
+            b[key] = max(oracle_bound(1.0, x[key] / w[key], floor)
+                         for x in witnesses)
+            r[key] = abs(g[key] - w[key]) / abs(w[key])
+            if not r[key] <= b[key]:
+                raise AssertionError(
+                    f"bf16 step {i + 1} {key}: port {got} vs JAX {want}, "
+                    f"CPU witness {cpu} (relative {r[key]} > {b[key]})")
+        rel.append(r)
+        bounds.append(b)
+    if (counts["decode_int_bwd_bf16"] != 3 * len(want)
+            or any(counts[k] for k in K.KERNELS)):
+        raise AssertionError(f"launches {counts}")
+    phase("slice_train_parity_bf16", t, steps=got, oracle=want,
+          cpu_witness=cpu, oracle_xla_route=xla, relative=rel,
+          bound=bounds, launches=counts)
+    return counts
+
+
+def step_profile(dev, t) -> dict:
+    """Phase 5d, last: where a flagship bf16 training step's device time
+    goes, and how long the device idles. ``torch.profiler`` over 5 steps
+    (after 3 warm-up steps) on a seeded random batch at the training
+    configuration; each kernel is put in one group by its name. The idle
+    share is 1 - (kernel time) / (wall time), one stream, with the wall
+    time of 5 more steps timed without the profiler (whose own host cost
+    would count as idle); the profiled wall time stands beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = load_config(None, ["model.dtype=bfloat16"])
+    state = loop.init_state(cfg, 1000, device=dev)
+    step = loop.make_train_step(state)
+    rng = np.random.default_rng(0)
+    batch = loop.to_device(bench._random_batch(
+        rng, cfg.data.batch_size, cfg.data.patch_size,
+        cfg.data.train_scales), dev)
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_profiled = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    groups = (("decoder kernels", ("decoder_fused::", "decoder_bwd::")),
+              ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "sm90_",
+                                       "implicit", "wgrad", "dgrad")),
+              ("optimizer", ("adam", "foreach", "multi_tensor")),
+              ("copies and casts", ("copy", "cast", "cat")),
+              ("elementwise and reductions", ("elementwise", "reduce",
+                                              "vectorized")))
+    ms = {g: 0.0 for g, _ in groups}
+    ms["other"] = 0.0
+    kernels = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t_ms = getattr(e, "device_time_total", 0) / n / 1e3
+        kernels += t_ms
+        key = e.key.lower()
+        g = next((g for g, pats in groups
+                  if any(pt in key for pt in pats)), "other")
+        ms[g] += t_ms
+    out = {"wall_ms_per_step": wall,
+           "wall_ms_per_step_profiled": wall_profiled,
+           "kernel_ms_per_step": kernels,
+           "device_idle_share": (1.0 - kernels / wall) if kernels else None,
+           "kernel_ms_by_group": ms}
+    phase("step_profile_bf16", t, **out)
+    return out
+
+
+def bench_line(t) -> None:
+    """Phase 5f: the bench, its JSON line printed on a line of its own."""
+    rec = bench.run("cuda")
+    print(json.dumps(rec), flush=True)
+    phase("bench", t, value=rec["value"], mfu_bf16=rec["mfu_bf16"],
+          steps_per_s=rec["steps_per_s"])
+
+
+def main(argv: list) -> int:
+    if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
+        bf16_cpu_witness(argv[1])
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", flush=True)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", flush=True)
         return 2
@@ -749,10 +1223,11 @@ def main() -> int:
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     peaks = card_peaks(kind)
+    peak_bf16 = flops.PEAK_FLOPS[(flops.sku(kind), "bfloat16")]
     phase("device", t, nvidia_smi=smi, kind=kind,
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0],
-          peaks=peaks[3])
+          peaks=peaks[3], bf16_peak_tflops=peak_bf16 / 1e12)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -775,16 +1250,22 @@ def main() -> int:
                 if not tc or min(tc) == 0:
                     raise AssertionError(f"{kern}: an instance without "
                                          f"{'/'.join(ops)}: {sass}")
+                hg = [v["HGMMA"] for k, v in sass.items()
+                      if k.startswith(kern) and k.endswith("Bf16>")]
+                if not hg or min(hg) == 0:
+                    raise AssertionError(f"{kern}: a bf16 instance without "
+                                         f"HGMMA: {sass}")
         phase("build", t, library=name,
               nvcc_seconds=round(info["seconds"], 3),
               path=str(build.library_path(name)), ptxas=regs,
+              registers_by_kernel=ptxas_by_kernel(info["log"]),
               sass_counts=sass)
 
     # 3) and 3b) kernels against their plain versions
     t = time.perf_counter()
-    checks = eval_kernels(dev, peaks, t)
+    checks = eval_kernels(dev, peaks, peak_bf16, t)
     t = time.perf_counter()
-    train_kernels(dev, peaks, t, checks)
+    train_kernels(dev, peaks, peak_bf16, t, checks)
     torch.cuda.empty_cache()
 
     # 4) and 5) the main paths, each with the launch counts set to 0 just
@@ -794,30 +1275,43 @@ def main() -> int:
     by_path["train_parity"] = train_parity(dev, time.perf_counter())
     by_path["train"] = train_slice(time.perf_counter())
     by_path["train_fractional"] = train_fractional(time.perf_counter())
+    by_path["eval_bf16"] = eval_slice_bf16(time.perf_counter())
+    by_path["train_parity_bf16"] = train_parity_bf16(dev, time.perf_counter())
+    by_path["train_bf16"] = train_slice(time.perf_counter(), bf16=True)
+    by_path["train_fractional_bf16"] = train_fractional(time.perf_counter(),
+                                                        bf16=True)
+    step_profile(dev, time.perf_counter())
+    bench_line(time.perf_counter())
 
     # 6) kernels line, then the device line
     kernels = []
-    for name in K.launches:
-        rs = checks[name]
+    for key in K.launches:
+        name = key.removesuffix("_bf16")
+        rs = checks[key]
         first = rs[0]
         entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": key, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(c[name] for c in by_path.values()),
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "dtype": "bfloat16" if key.endswith("_bf16") else "float32",
+            "launches": sum(c[key] for c in by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in
-                               rs + checks.get(f"{name}_train", [])),
+                               rs + checks.get(f"{key}_train", [])),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "bound_ffma_ms": first["bound_ffma_ms"],
             "library_ms": None, "shape": first["shape"],
             "achieved_tflops": first["achieved_tflops"]}
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_ffma_ms", "achieved_tflops", "max_abs_err",
-                "ms_by_device_kernel")
+                "achieved_tflops", "max_abs_err", "ms_by_device_kernel")
+        if key.endswith("_bf16"):
+            keys += ("err_vs_fp32_chain",)
+            entry["err_vs_fp32_chain"] = first["err_vs_fp32_chain"]
+        else:
+            keys += ("bound_ffma_ms",)
+            entry["bound_ffma_ms"] = first["bound_ffma_ms"]
         entry["train_shapes"] = [
             {k: r[k] for k in keys}
-            for r in (checks[f"{name}_train"] if name in FWD else rs)]
+            for r in (checks[f"{key}_train"] if name in FWD else rs)]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -827,4 +1321,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -73,6 +73,7 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.cli.train", "tpu_diinn_torch.train.optim",
         "tpu_diinn_torch.train.task", "tpu_diinn_torch.train.logging",
         "tpu_diinn_torch.train.checkpoint", "tpu_diinn_torch.data.pipeline",
+        "tpu_diinn_torch.train.flops", "tpu_diinn_torch.bench",
         "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -60,6 +60,6 @@ def test_use_fused_false_takes_the_eager_route(value, fused):
                                      "model.encoder=rdn-tiny",
                                      "model.hidden_dims=[32,32,32]"])
     assert cfg.model.use_fused is (None if fused else False)
-    net = loop.build_task(cfg).net
+    net = loop.build_task(cfg, device="cpu").net
     feat = torch.zeros((1, 4, 4, 8))
     assert net.decoder._fused_ok(feat) is fused

@@ -11,7 +11,8 @@ version's largest magnitude, for dz and for each weight gradient (sums
 over up to every query of the call). The backward comparisons zero the
 upstream gradient of the queries whose relu pre-activations come within
 1e-5 of zero (``chip_smoke.relu_margin``): there two correct fp32
-implementations may take different sides of the relu mask.
+implementations may take different sides of the relu mask. The bf16
+instances' tolerances are stated beside their tests, at the end.
 """
 
 import numpy as np
@@ -276,4 +277,145 @@ def test_grad_recording_flagship_forward_launches_the_kernels():
         torch.cuda.synchronize()
         assert K.launches[bwd] == before[bwd] + 1
         assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in net.parameters())
+
+
+# The bf16 instances (the JAX package's bf16 mode: z and the weights bf16,
+# q rounded to bf16 before each product, fp32 sums) against their plain
+# bf16 versions. Both round to bf16 after fp32 sums taken in different
+# orders, so now and then an element rounds to the other neighbour (2^-8
+# of it) and the later layers carry that on: the forward is held to 2e-2
+# of the plain version's largest magnitude, the backward to 1e-2, with the
+# upstream gradient zeroed within 1e-3 of a relu's switch point of the
+# bf16 chain.
+BF16 = torch.bfloat16
+
+
+def _as_bf16(z, p):
+    return z.to(BF16), {k: v.to(BF16) if k in K.WEIGHT_KEYS else v
+                        for k, v in p.items()}
+
+
+def _close_bf16(got, want, tol):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("hidden,n_layers", [(32, 4), (64, 3), (256, 4)])
+@pytest.mark.parametrize("lr,s", [((5, 7), (3, 3)), ((9, 6), (8, 2))])
+def test_decode_int_fwd_bf16_matches_plain(hidden, n_layers, lr, s):
+    dev = _device()
+    gen = torch.Generator().manual_seed(hidden + lr[0])
+    z, p = _as_bf16(torch.randn((2, *lr, n_layers * hidden),
+                                generator=gen).to(dev),
+                    _params(hidden, n_layers, gen, dev))
+    out_hw = (lr[0] * s[0], lr[1] * s[1])
+    syn = grids.syn_input_grid(lr, out_hw, dtype=BF16, device=dev).float()
+    before = dict(K.launches)
+    got = K.decode_int_fwd(z, syn, s[0], s[1], p)
+    torch.cuda.synchronize()
+    assert K.launches["decode_int_fwd_bf16"] == \
+        before["decode_int_fwd_bf16"] + 1
+    assert K.launches["decode_int_fwd"] == before["decode_int_fwd"]
+    assert got.dtype == torch.float32
+    _close_bf16(got, K.decode_int_fwd_ref(z, syn, s[0], s[1], p), 2e-2)
+
+
+@pytest.mark.parametrize("hidden", [32, 256])
+def test_decode_window_fwd_bf16_matches_plain(hidden):
+    dev = _device()
+    gen = torch.Generator().manual_seed(hidden)
+    lr, out_hw = (7, 9), (22, 28)
+    z, p = _as_bf16(torch.randn((2, *lr, 4 * hidden), generator=gen).to(dev),
+                    _params(hidden, 4, gen, dev))
+    rows = grids.nearest_exact_indices(lr[0], out_hw[0])[3:19]
+    cols = grids.nearest_exact_indices(lr[1], out_hw[1])[5:14]
+    syn = grids.syn_input_grid(lr, out_hw, dtype=BF16, device=dev)
+    syn = syn[3:19, 5:14].float().contiguous()
+    got = K.decode_window_fwd(z, syn, K.index_vector(rows, lr[0], dev),
+                              K.index_vector(cols, lr[1], dev), p)
+    torch.cuda.synchronize()
+    _close_bf16(got, K.decode_window_fwd_ref(z, syn, rows, cols, p), 2e-2)
+
+
+def _bwd_case_bf16(hidden, n_layers, b, lr, out_hw, window, seed):
+    z, syn, rows, cols, p, _ = _bwd_case(hidden, n_layers, b, lr, out_hw,
+                                         window, seed)
+    z, p = _as_bf16(z, p)
+    syn = grids.syn_input_grid(lr, out_hw, dtype=BF16, device=z.device)
+    if window is not None:
+        r0, r1, c0, c1 = window
+        syn = syn[r0:r1, c0:c1]
+    syn = syn.float().contiguous()
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn((b, rows.size, cols.size, 3), generator=gen).to(z.device)
+    keep = relu_margin(z, syn, rows, cols, p) > 1e-3
+    return z, syn, rows, cols, p, (g * keep[..., None]).contiguous()
+
+
+def _assert_bwd_close_bf16(got, want):
+    dz, grads = got
+    assert dz.dtype == BF16
+    pairs = [("dz", dz, want[0])] + [(k, grads[k], want[1][k])
+                                    for k in K.PARAM_KEYS]
+    for name, a, b in pairs:
+        if name != "dz":
+            assert a.dtype == torch.float32, name
+        _close_bf16(a, b, 1e-2)
+    h = grads["w0"].shape[1]
+    assert grads["bcat"][:, :h].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("hidden,n_layers", [(32, 4), (64, 3), (256, 4)])
+@pytest.mark.parametrize("b,lr,s", [(2, (6, 8), (2, 2)), (1, (5, 7), (3, 3))])
+def test_decode_int_bwd_bf16_matches_plain(hidden, n_layers, b, lr, s):
+    out_hw = (lr[0] * s[0], lr[1] * s[1])
+    z, syn, _, _, p, g = _bwd_case_bf16(hidden, n_layers, b, lr, out_hw,
+                                        None, hidden + lr[0])
+    before = K.launches["decode_int_bwd_bf16"]
+    got = K.decode_int_bwd(z, syn, s[0], s[1], p, g)
+    torch.cuda.synchronize()
+    assert K.launches["decode_int_bwd_bf16"] == before + 1
+    _assert_bwd_close_bf16(got, K.decode_int_bwd_ref(z, syn, s[0], s[1], p,
+                                                     g))
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 256])
+def test_decode_window_bwd_bf16_matches_plain(hidden):
+    z, syn, rows, cols, p, g = _bwd_case_bf16(hidden, 3, 2, (7, 9), (22, 28),
+                                              (3, 19, 5, 14), hidden)
+    before = K.launches["decode_window_bwd_bf16"]
+    got = K.decode_window_bwd(z, syn, K.index_vector(rows, 7, z.device),
+                              K.index_vector(cols, 9, z.device), p, g)
+    torch.cuda.synchronize()
+    assert K.launches["decode_window_bwd_bf16"] == before + 1
+    _assert_bwd_close_bf16(got, K.decode_window_bwd_ref(z, syn, rows, cols,
+                                                        p, g))
+
+
+def test_bf16_flagship_forward_and_backward_launch_bf16_instances():
+    """The flagship config in bf16 (``dtype=bfloat16``, fp32 parameters):
+    each route launches its bf16 forward and backward instances and no
+    fp32 one, and every parameter gets a finite fp32 gradient."""
+    dev = _device()
+    net = DIINN(generator=torch.Generator().manual_seed(0),
+                dtype=BF16).to(dev)
+    x = torch.rand((1, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    x = x.to(dev)
+    for fwd, bwd, out_hw in (("decode_int_fwd", "decode_int_bwd", (32, 32)),
+                             ("decode_window_fwd", "decode_window_bwd",
+                              (25, 25))):
+        before = dict(K.launches)
+        net.zero_grad()
+        out = net(x, out_hw, 30000)
+        assert out.dtype == BF16
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        after = dict(K.launches)
+        assert after[fwd + "_bf16"] == before[fwd + "_bf16"] + 1
+        assert after[bwd + "_bf16"] == before[bwd + "_bf16"] + 1
+        assert all(after[k] == before[k] for k in K.KERNELS)
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   and torch.isfinite(p.grad).all()
                    for p in net.parameters())

@@ -10,9 +10,15 @@ plain version's largest magnitude (the emulation reads TF32 operands and
 sums in another order; 3xTF32 keeps fp32-level error, about 2e-7 here),
 with the upstream gradient zeroed where a relu pre-activation lies within
 1e-5 of zero (``chip_smoke.relu_margin``), and the kq half of dbcat
-exactly zero. It cannot check the PTX (descriptor bits, copies) or the
-timing: the ``cuda``-marked tests and ``chip_smoke.py`` do that on a card.
-Skips without g++.
+exactly zero. The bf16 instances (the Bf16 policy) are held against the
+plain bf16 versions on the same shapes plus hidden 256 at L = 4, within
+1e-2 of the largest magnitude, the upstream gradient zeroed where a relu
+pre-activation of the bf16 chain lies within 1e-3 of zero: both sides
+round q, d, dpre_0 and g to bf16 after fp32 sums taken in different
+orders, so now and then a value rounds to the other neighbour (2^-8 of
+it), and dz is rounded to bf16 once. It cannot check the PTX (descriptor
+bits, copies) or the timing: the ``cuda``-marked tests and
+``chip_smoke.py`` do that on a card. Skips without g++.
 """
 
 import math
@@ -31,6 +37,7 @@ from tpu_diinn_torch.kernels import decoder_fused as K
 CSRC = Path(K.__file__).resolve().parents[1] / "csrc"
 TOL = 1e-5
 MARGIN = 1e-5
+TOL_BF16, MARGIN_BF16 = 1e-2, 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -65,33 +72,45 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("h,n_layers,b,lr,ratio,win", CASES)
-def test_host_emulation_matches_plain(harness, tmp_path, h, n_layers, b, lr,
-                                      ratio, win):
+def tofile(t: torch.Tensor, path) -> None:
+    """A tensor's raw little-endian bits (bf16 as its 16 bits)."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    t.numpy().tofile(path)
+
+
+def run_case(harness, tmp_path, h, n_layers, b, lr, ratio, win,
+             dtype=torch.float32, margin=MARGIN):
+    """[(name, the emulated kernel's result, the plain version's)] for dz
+    and each weight gradient of one case, z and the weights in ``dtype``."""
     gen = torch.Generator().manual_seed(h + lr[0])
     p = _params(gen, h, n_layers)
-    z = torch.randn((b, *lr, n_layers * h), generator=gen)
+    p = {k: v.to(dtype) if k in K.WEIGHT_KEYS else v for k, v in p.items()}
+    z = torch.randn((b, *lr, n_layers * h), generator=gen).to(dtype)
     if ratio is None:
         rows = grids.nearest_exact_indices(lr[0], win[0])
         cols = grids.nearest_exact_indices(lr[1], win[1])[1:]
-        syn = grids.syn_input_grid(lr, win)[:, 1:].contiguous()
+        syn = grids.syn_input_grid(lr, win, dtype=dtype)[:, 1:]
         s_h = s_w = 1
         hw = (rows.size, cols.size)
     else:
         s_h, s_w = ratio
         hw = (lr[0] * s_h, lr[1] * s_w)
         rows, cols = np.arange(hw[0]) // s_h, np.arange(hw[1]) // s_w
-        syn = grids.syn_input_grid(lr, hw)
-    keep = relu_margin(z, syn, rows, cols, p) > MARGIN
+        syn = grids.syn_input_grid(lr, hw, dtype=dtype)
+    syn = syn.float().contiguous()
+    keep = relu_margin(z, syn, rows, cols, p) > margin
     g = torch.randn((b, *hw, 3), generator=gen) * keep[..., None]
     wf, wt = (K.mma_b_slabs(w) for w in K.chain_b_operands(p["wcat"]))
     for name, t in [("z", z), ("syn", syn), ("w0", p["w0"]), ("b0", p["b0"]),
                     ("wf", wf), ("bcat", p["bcat"]), ("wl", p["wl"]),
                     ("wt", wt), ("g", g)]:
-        t.contiguous().numpy().astype(np.float32).tofile(tmp_path / name)
+        tofile(t, tmp_path / name)
     np.asarray(rows, np.int32).tofile(tmp_path / "rows")
     np.asarray(cols, np.int32).tofile(tmp_path / "cols")
-    args = (int(ratio is None), b, *lr, *hw, s_h, s_w, h, n_layers)
+    args = (int(ratio is None), b, *lr, *hw, s_h, s_w, h, n_layers,
+            int(dtype == torch.bfloat16))
     subprocess.run([str(harness), str(tmp_path), *map(str, args)],
                    check=True, capture_output=True, timeout=600)
 
@@ -99,9 +118,12 @@ def test_host_emulation_matches_plain(harness, tmp_path, h, n_layers, b, lr,
         dz_ref, want = K.decode_window_bwd_ref(z, syn, rows, cols, p, g)
     else:
         dz_ref, want = K.decode_int_bwd_ref(z, syn, s_h, s_w, p, g)
-    dz = torch.from_numpy(np.fromfile(tmp_path / "dz_out", np.float32))
+    raw = np.fromfile(tmp_path / "dz_out",
+                      np.int16 if dtype == torch.bfloat16 else np.float32)
+    dz = torch.from_numpy(raw)
+    dz = dz.view(torch.bfloat16) if dtype == torch.bfloat16 else dz
     flat = torch.from_numpy(np.fromfile(tmp_path / "grads_out", np.float32))
-    pairs = [("dz", dz.reshape(z.shape), dz_ref)]
+    pairs = [("dz", dz.reshape(z.shape).float(), dz_ref.float())]
     at = 0
     for key in K.PARAM_KEYS:
         n = want[key].numel()
@@ -109,7 +131,26 @@ def test_host_emulation_matches_plain(harness, tmp_path, h, n_layers, b, lr,
                       want[key]))
         at += n
     assert at == flat.numel()
+    assert pairs[4][1][:, :h].abs().max().item() == 0.0  # kq half of dbcat
+    return pairs
+
+
+@pytest.mark.parametrize("h,n_layers,b,lr,ratio,win", CASES)
+def test_host_emulation_matches_plain(harness, tmp_path, h, n_layers, b, lr,
+                                      ratio, win):
+    pairs = run_case(harness, tmp_path, h, n_layers, b, lr, ratio, win)
     for name, got, ref in pairs:
         err = (got - ref).abs().max().item()
         assert err <= TOL * ref.abs().max().item(), (name, err)
-    assert pairs[4][1][:, :h].abs().max().item() == 0.0  # kq half of dbcat
+
+
+@pytest.mark.parametrize("h,n_layers,b,lr,ratio,win", CASES + [
+    (256, 4, 1, (2, 2), (2, 2), None),     # flagship width and depth
+])
+def test_host_emulation_bf16_matches_plain(harness, tmp_path, h, n_layers,
+                                           b, lr, ratio, win):
+    pairs = run_case(harness, tmp_path, h, n_layers, b, lr, ratio, win,
+                     torch.bfloat16, MARGIN_BF16)
+    for name, got, ref in pairs:
+        err = (got - ref).abs().max().item()
+        assert err <= TOL_BF16 * ref.abs().max().item(), (name, err)

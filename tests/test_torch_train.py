@@ -10,11 +10,16 @@
 
 Data, schedule, CLI and checkpoints: tests/test_torch_train_cli.py.
 
-``jax_train_oracle`` also made the committed flagship oracle that
-``chip_smoke.py`` holds the card against:
+``jax_train_oracle`` also made the committed flagship oracles that
+``chip_smoke.py`` holds the card against, fp32 (phase 5a) and bf16 (phases
+4b and 5d: three steps on JAX's XLA route and on its fused route with the
+Pallas kernels in interpret mode, and the Set5 benchmark metrics on both
+routes):
 
     python -m tests.test_torch_train --flagship-oracle \
         tpu_diinn_torch/testdata/flagship_train_jax_cpu.json
+    python -m tests.test_torch_train --flagship-oracle-bf16 \
+        tpu_diinn_torch/testdata/flagship_bf16_jax_cpu.json
 """
 
 import functools
@@ -95,7 +100,7 @@ def jax_train_oracle(overrides, batches, n_steps, params=None, seed=0):
 def port_train(overrides, batches, n_steps, params):
     """The same steps through the port's ``make_train_step`` (CPU)."""
     cfg = load_config(None, overrides)
-    state = loop.init_state(cfg, 1000, params=params)
+    state = loop.init_state(cfg, 1000, device="cpu", params=params)
     step = loop.make_train_step(state)
     metrics = []
     for batch in batches[:n_steps]:
@@ -132,12 +137,12 @@ def test_train_steps_match_jax(use_fused, scales):
                                    err_msg=k)
 
 
-def flagship_oracle(n_steps=3):
+def flagship_oracle(n_steps=3, overrides=()):
     """The flagship JAX oracle of ``chip_smoke.py`` phase 5a: ``n_steps``
-    steps at the default (flagship) configuration from
+    steps at the default (flagship) configuration (with ``overrides``) from
     ``results/flagship_weights.npz`` on the first batches of epoch 0
     (seed 123) of DIV2K[0:160), on the JAX numpy data path."""
-    cfg = jload_config(None, [])
+    cfg = jload_config(None, list(overrides))
     d = cfg.data
     full = jds.SRDatasetDownsample(root=str(REPO / "data"), name="DIV2K",
                                    split="train", scales=d.train_scales,
@@ -150,15 +155,50 @@ def flagship_oracle(n_steps=3):
                              num_workers=4)
     batches = [next(it) for _ in range(n_steps)]
     state, _ = jload_npz(str(FLAGSHIP))
-    _, metrics, _ = jax_train_oracle([], batches, n_steps,
+    _, metrics, _ = jax_train_oracle(list(overrides), batches, n_steps,
                                      params=_flatten(state["params"]))
     return {"weights": "results/flagship_weights.npz", "seed": cfg.seed,
             "batches": f"first {n_steps} of epoch 0, DIV2K[0:{len(train)})",
             "steps": metrics}
 
 
+def flagship_bf16_oracle(out_path: Path) -> dict:
+    """The bf16 oracle of ``chip_smoke.py`` phases 4b and 5d, written to
+    ``out_path`` after each part: three flagship steps and the Set5
+    benchmark metrics in ``model.dtype=bfloat16``, on JAX's XLA route
+    (``model.use_fused=false``) and on its fused route
+    (``model.use_fused=true``: the Pallas kernels in interpret mode on the
+    CPU). The eval runs per exact shape (``--eval_buckets 0``), as the
+    port's eval does."""
+    import time
+    from tpu_diinn.cli import benchmarks as jbench
+    out = {"weights": "results/flagship_weights.npz",
+           "dtype": "bfloat16", "platform": "JAX on the CPU",
+           "routes": {"xla": "model.use_fused=false",
+                      "fused_interpret": "model.use_fused=true (Pallas "
+                                         "interpret mode)"}}
+    for route, flag in (("xla", "false"), ("fused_interpret", "true")):
+        ov = ["model.dtype=bfloat16", f"model.use_fused={flag}"]
+        t0 = time.time()
+        res = flagship_oracle(3, ov)
+        out.setdefault("steps", {})[route] = res["steps"]
+        out["batches"] = res["batches"]
+        out.setdefault("seconds", {})[f"steps_{route}"] = time.time() - t0
+        out_path.write_text(json.dumps(out, indent=1) + "\n")
+        t0 = time.time()
+        m = jbench.main([*ov, "--ckpt_path", str(FLAGSHIP), "--root",
+                         str(REPO / "data"), "--eval_buckets", "0",
+                         "--testsets", "Set5"])
+        out.setdefault("set5", {})[route] = m["Set5"]
+        out["seconds"][f"set5_{route}"] = time.time() - t0
+        out_path.write_text(json.dumps(out, indent=1) + "\n")
+    return out
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
+    if sys.argv[1:2] == ["--flagship-oracle-bf16"]:
+        print(json.dumps(flagship_bf16_oracle(Path(sys.argv[2])), indent=1))
     if sys.argv[1:2] == ["--flagship-oracle"]:
         out = flagship_oracle()
         text = json.dumps(out, indent=1)

@@ -85,7 +85,7 @@ def test_lr_schedule_matches_step_decay_schedule(steps_per_epoch):
                                          50) == float(sched(step)), step
     # and as the optimizer sees it: update k uses the rate of step k
     cfg = load_config(None, TINY)
-    state = loop.init_state(cfg, steps_per_epoch)
+    state = loop.init_state(cfg, steps_per_epoch, device="cpu")
     for k in range(0, 12 * steps_per_epoch, max(1, steps_per_epoch)):
         while state.step < k:
             loop.apply_update(state)
@@ -124,7 +124,7 @@ def test_port_checkpoint_loads_through_jax(tmp_path):
     """A port checkpoint is a compact export the JAX package reads: the
     same arrays, and a JAX net built from its config runs on them."""
     cfg = load_config(None, TINY)
-    state = loop.init_state(cfg, 10)
+    state = loop.init_state(cfg, 10, device="cpu")
     CheckpointManager(str(tmp_path)).save(state.task.net, step=3,
                                           val_loss=0.25,
                                           config=to_dict(cfg), epoch=1)
@@ -146,3 +146,14 @@ def test_port_checkpoint_loads_through_jax(tmp_path):
         ref = state.task.net(torch.from_numpy(x), (12, 12))
     np.testing.assert_allclose(np.asarray(out), ref.numpy(), rtol=0,
                                atol=1e-5)
+
+
+def test_library_entry_points_default_to_the_card():
+    """``build_task``, ``init_state``, ``validate``, ``test_metrics`` and
+    ``train`` run on the card unless the caller asks for the CPU, as the
+    CLIs do (the tests here pass ``device="cpu"``)."""
+    import inspect
+    for fn in (loop.build_task, loop.init_state, loop.validate,
+               loop.test_metrics, loop.train):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__name__

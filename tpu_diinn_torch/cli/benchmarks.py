@@ -11,9 +11,12 @@ the checkpoint's embedded config (e.g. ``model.use_fused=false`` runs the
 eager decoder instead of the CUDA kernels).
 
 Runs on the card by default. ``--device cuda`` on a host without CUDA
-raises; it does not fall back to the CPU. fp32 is stated and set: TF32 is
-turned off for cuBLAS and cuDNN, so the encoder's convs and SSIM's
-gaussian convs run in full fp32.
+raises; it does not fall back to the CPU. TF32 is turned off for cuBLAS
+and cuDNN, so in fp32 (``model.dtype=float32``) the encoder's convs and
+SSIM's gaussian convs run in full fp32. ``model.dtype=bfloat16`` is the
+JAX package's bf16 mode: the encoder and the decoder compute in bf16 over
+the fp32 weights (the decoder kernels' bf16 instances), the prediction is
+bf16, and the metrics are taken in fp32 over it.
 """
 
 from __future__ import annotations

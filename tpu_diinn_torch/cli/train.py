@@ -11,7 +11,11 @@ over both (e.g. ``data.synthetic=true``, ``data.train_scales=[2,2.5]``).
 
 Runs on the card by default. ``--device cuda`` on a host without CUDA
 raises; it does not fall back to the CPU. TF32 is turned off for cuBLAS
-and cuDNN, so the encoder trains in full fp32 as the JAX package does.
+and cuDNN, so in fp32 the encoder trains in full fp32 as the JAX package
+does. ``model.dtype=bfloat16`` is the JAX package's bf16 mode: every conv
+and dense layer computes in bf16 over fp32 parameters, the decoder runs
+its bf16 kernel instances, the loss is fp32 over the bf16 prediction, and
+the gradients and Adam's state stay fp32.
 """
 
 from __future__ import annotations

@@ -10,6 +10,10 @@ Counterpart of ``tpu_diinn/core/grids.py`` with the same scalar conventions:
 The JAX package also expresses the nearest-exact upsample as one-hot
 matmuls (an MXU device of the TPU); the port gathers by index with
 ``nearest_exact_indices`` instead.
+
+``dtype`` (bfloat16 in the bf16 mode) is the arithmetic's type, as the
+JAX functions compute in theirs: every scalar and every intermediate is
+rounded to it, op by op.
 """
 
 from __future__ import annotations
@@ -18,19 +22,28 @@ import numpy as np
 import torch
 
 
+def _scalar(v: float, dtype, device) -> torch.Tensor:
+    """A Python scalar as a 0-d tensor of ``dtype`` (rounded to it, as JAX
+    rounds a weakly typed scalar to the array's type)."""
+    return torch.tensor(v, dtype=torch.float64, device=device).to(dtype)
+
+
 def pixel_center_coords(n: int, *, v0: float = -1.0, v1: float = 1.0,
-                        device=None) -> torch.Tensor:
-    """1-D float32 pixel-center coordinates of ``n`` cells over [v0, v1]."""
+                        dtype=torch.float32, device=None) -> torch.Tensor:
+    """1-D pixel-center coordinates of ``n`` cells over [v0, v1], computed
+    in ``dtype``: (v0 + r) + (2 r) * i, r = (v1 - v0) / (2n)."""
     r = (v1 - v0) / (2 * n)
-    return v0 + r + (2 * r) * torch.arange(n, dtype=torch.float32,
-                                           device=device)
+    i = torch.arange(n, dtype=torch.float32, device=device).to(dtype)
+    return (_scalar(v0 + r, dtype, device)
+            + _scalar(2 * r, dtype, device) * i)
 
 
-def coord_grid(size: tuple[int, int], *, device=None) -> torch.Tensor:
+def coord_grid(size: tuple[int, int], *, dtype=torch.float32,
+               device=None) -> torch.Tensor:
     """(H, W, 2) grid of pixel-center (y, x) coordinates in [-1, 1]."""
     h, w = size
-    ys = pixel_center_coords(h, device=device)
-    xs = pixel_center_coords(w, device=device)
+    ys = pixel_center_coords(h, dtype=dtype, device=device)
+    xs = pixel_center_coords(w, dtype=dtype, device=device)
     return torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
 
 
@@ -44,22 +57,23 @@ def nearest_exact_indices(n_in: int, n_out: int) -> np.ndarray:
 
 
 def rel_coord_grid(in_size: tuple[int, int], out_size: tuple[int, int],
-                   *, device=None) -> torch.Tensor:
+                   *, dtype=torch.float32, device=None) -> torch.Tensor:
     """(H_out, W_out, 2) relative-coordinate encoding of the DIINN decoder:
     each query's own pixel-center coordinate minus that of its
     nearest-exact LR cell, y scaled by H_in and x by W_in."""
     h_in, w_in = in_size
     h_out, w_out = out_size
-    ys_out = pixel_center_coords(h_out, device=device)
-    xs_out = pixel_center_coords(w_out, device=device)
-    ys_in = pixel_center_coords(h_in, device=device)
-    xs_in = pixel_center_coords(w_in, device=device)
+    kw = dict(dtype=dtype, device=device)
+    ys_out = pixel_center_coords(h_out, **kw)
+    xs_out = pixel_center_coords(w_out, **kw)
+    ys_in = pixel_center_coords(h_in, **kw)
+    xs_in = pixel_center_coords(w_in, **kw)
     ridx = torch.from_numpy(nearest_exact_indices(h_in, h_out)).to(
         ys_in.device, torch.long)
     cidx = torch.from_numpy(nearest_exact_indices(w_in, w_out)).to(
         xs_in.device, torch.long)
-    ry = (ys_out - ys_in[ridx]) * h_in
-    rx = (xs_out - xs_in[cidx]) * w_in
+    ry = (ys_out - ys_in[ridx]) * _scalar(h_in, dtype, ys_in.device)
+    rx = (xs_out - xs_in[cidx]) * _scalar(w_in, dtype, xs_in.device)
     ry = ry[:, None].expand(h_out, w_out)
     rx = rx[None, :].expand(h_out, w_out)
     return torch.stack([ry, rx], dim=-1)
@@ -71,10 +85,10 @@ def area_ratio(in_size: tuple[int, int], out_size: tuple[int, int]) -> float:
 
 
 def syn_input_grid(in_size: tuple[int, int], out_size: tuple[int, int],
-                   *, device=None) -> torch.Tensor:
-    """(H_out, W_out, 3) float32 synthesis input [rel_y, rel_x, area_ratio];
-    batch-independent, callers broadcast."""
-    rel = rel_coord_grid(in_size, out_size, device=device)
-    ratio = torch.full(rel.shape[:2] + (1,), area_ratio(in_size, out_size),
-                       dtype=torch.float32, device=rel.device)
+                   *, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(H_out, W_out, 3) synthesis input [rel_y, rel_x, area_ratio] in
+    ``dtype``; batch-independent, callers broadcast."""
+    rel = rel_coord_grid(in_size, out_size, dtype=dtype, device=device)
+    ratio = _scalar(area_ratio(in_size, out_size), dtype,
+                    rel.device).expand(rel.shape[:2] + (1,))
     return torch.cat([rel, ratio], dim=-1)

@@ -91,8 +91,9 @@ def _matlab_matrix(n_in: int, n_out: int, antialias: bool) -> np.ndarray:
 
 def resize(x: torch.Tensor, size: tuple[int, int], *, kernel: str = "torch",
            antialias: bool = True) -> torch.Tensor:
-    """Bicubic-resize an (..., H, W, C) float32 tensor to ``size`` with two
-    matmuls (H axis, then W axis), on ``x``'s device."""
+    """Bicubic-resize an (..., H, W, C) tensor to ``size`` with two fp32
+    matmuls (H axis, then W axis), on ``x``'s device; the result in x's
+    dtype (a bf16 image's resize is rounded to bf16, as JAX's)."""
     h_in, w_in = x.shape[-3], x.shape[-2]
     h_out, w_out = int(size[0]), int(size[1])
     wh = torch.as_tensor(resize_matrix(h_in, h_out, kernel, antialias),
@@ -100,7 +101,7 @@ def resize(x: torch.Tensor, size: tuple[int, int], *, kernel: str = "torch",
     ww = torch.as_tensor(resize_matrix(w_in, w_out, kernel, antialias),
                          dtype=torch.float32, device=x.device)
     y = torch.einsum("oh,...hwc->...owc", wh, x.to(torch.float32))
-    return torch.einsum("ow,...hwc->...hoc", ww, y)
+    return torch.einsum("ow,...hwc->...hoc", ww, y).to(x.dtype)
 
 
 def resize_np(x: np.ndarray, size: tuple[int, int], *, kernel: str = "torch",

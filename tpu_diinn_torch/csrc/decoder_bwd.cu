@@ -1,5 +1,5 @@
 // Fused DIINN mode-3 decoder backward for Hopper (sm_90a): fp32 accuracy
-// from 3xTF32 tensor-core products.
+// from 3xTF32 tensor-core products, or the bf16 mode from bf16 ones.
 //
 // Replaces two Pallas TPU kernels of tpu_diinn/kernels/decoder_fused.py:
 //
@@ -31,6 +31,11 @@
 // the splits in a fixed order, so the result is deterministic and uses no
 // atomics.
 //
+// The bf16 instances (bf16 = 1 at the interface; decoder_bwd.cuh's Bf16
+// policy) take z, W0, Wl and the weight slabs in bf16 and return dz in
+// bf16 and the weight gradients in fp32, every product on bf16 operands
+// with fp32 sums (989 TFLOP/s peak).
+//
 // Interface: plain C, loaded with ctypes, like decoder_fused.cu. Each
 // launcher runs on the caller's current device and stream, allocates
 // nothing (the caller passes a scratch buffer of
@@ -43,21 +48,29 @@
 
 namespace decoder_bwd {
 
-template <bool kWindow>
-static int launch(const float* z, const float* syn, const int* rows,
-                  const int* cols, const float* w0, const float* b0,
-                  const float* wslab, const float* bcat, const float* wl,
-                  const float* wtslab, const float* g, float* dz,
+template <bool kWindow, class P>
+static int launch(const void* z_, const float* syn, const int* rows,
+                  const int* cols, const void* w0_, const float* b0,
+                  const void* wslab_, const float* bcat, const void* wl_,
+                  const void* wtslab_, const float* g, void* dz_,
                   float* grads, float* scratch, int batch, int h_in,
                   int w_in, int h_out, int w_out, int s_h, int s_w,
                   int hidden, int n_layers, cudaStream_t stream) {
+  using Z = typename P::Z;
+  using W = typename P::W;
+  const Z* z = static_cast<const Z*>(z_);
+  Z* dz = static_cast<Z*>(dz_);
+  const W* w0 = static_cast<const W*>(w0_);
+  const W* wslab = static_cast<const W*>(wslab_);
+  const W* wl = static_cast<const W*>(wl_);
+  const W* wtslab = static_cast<const W*>(wtslab_);
   CudaLaunch launcher{stream};
 #define DECODER_BWD_CASE(NC)                                                \
   case NC:                                                                  \
-    return run_bwd<NC, kWindow>(launcher, z, syn, rows, cols, w0, b0, wslab,\
-                                bcat, wl, wtslab, g, dz, grads, scratch,    \
-                                batch, h_in, w_in, h_out, w_out, s_h, s_w,  \
-                                n_layers);
+    return run_bwd<NC, kWindow, P>(launcher, z, syn, rows, cols, w0, b0,    \
+                                   wslab, bcat, wl, wtslab, g, dz, grads,   \
+                                   scratch, batch, h_in, w_in, h_out,       \
+                                   w_out, s_h, s_w, n_layers);
   switch (hidden % 32 == 0 ? hidden / 32 : 0) {
     DECODER_BWD_CASE(1)
     DECODER_BWD_CASE(2)
@@ -66,6 +79,25 @@ static int launch(const float* z, const float* syn, const int* rows,
       return cudaErrorInvalidValue;
   }
 #undef DECODER_BWD_CASE
+}
+
+template <bool kWindow>
+static int launch_prec(int bf16, const void* z, const float* syn,
+                       const int* rows, const int* cols, const void* w0,
+                       const float* b0, const void* wslab, const float* bcat,
+                       const void* wl, const void* wtslab, const float* g,
+                       void* dz, float* grads, float* scratch, int batch,
+                       int h_in, int w_in, int h_out, int w_out, int s_h,
+                       int s_w, int hidden, int n_layers,
+                       cudaStream_t stream) {
+  return bf16 ? launch<kWindow, Bf16>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                      wl, wtslab, g, dz, grads, scratch,
+                                      batch, h_in, w_in, h_out, w_out, s_h,
+                                      s_w, hidden, n_layers, stream)
+              : launch<kWindow, Tf32>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                      wl, wtslab, g, dz, grads, scratch,
+                                      batch, h_in, w_in, h_out, w_out, s_h,
+                                      s_w, hidden, n_layers, stream);
 }
 
 }  // namespace decoder_bwd
@@ -81,20 +113,20 @@ long long decoder_bwd_scratch_floats(long long n_query, int hidden,
 // z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), w0, b0, bcat
 // and wl as decoder_fused.cu takes them, wslab and wtslab the split
 // wgmma B slabs of [Wkq | Wq] and of its transpose (the wrapper's
-// mma_b_slabs), g (B, s_h*H_in, s_w*W_in, 3) -> dz (B, H_in, W_in, L*hidden) and the flat weight gradients
-// (decoder_bwd::Plan); all fp32, contiguous, 16-byte aligned.
+// mma_b_slabs), g (B, s_h*H_in, s_w*W_in, 3) -> dz (B, H_in, W_in,
+// L*hidden) and the flat weight gradients (decoder_bwd::Plan); all fp32
+// (bf16 = 0), or z, w0, wl, the slabs and dz bf16 (bf16 = 1); contiguous,
+// 16-byte aligned.
 int launch_decode_int_bwd(const void* z, const void* syn, const void* w0,
                           const void* b0, const void* wslab, const void* bcat,
                           const void* wl, const void* wtslab, const void* g,
                           void* dz, void* grads, void* scratch, int batch,
                           int h_in, int w_in, int s_h, int s_w, int hidden,
-                          int n_layers, void* stream) {
-  return decoder_bwd::launch<false>(
-      static_cast<const float*>(z), static_cast<const float*>(syn), nullptr,
-      nullptr, static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
-      static_cast<const float*>(wl), static_cast<const float*>(wtslab),
-      static_cast<const float*>(g), static_cast<float*>(dz),
+                          int n_layers, int bf16, void* stream) {
+  return decoder_bwd::launch_prec<false>(
+      bf16, z, static_cast<const float*>(syn), nullptr, nullptr, w0,
+      static_cast<const float*>(b0), wslab, static_cast<const float*>(bcat),
+      wl, wtslab, static_cast<const float*>(g), dz,
       static_cast<float*>(grads), static_cast<float*>(scratch), batch, h_in,
       w_in, s_h * h_in, s_w * w_in, s_h, s_w, hidden, n_layers,
       static_cast<cudaStream_t>(stream));
@@ -111,17 +143,14 @@ int launch_decode_window_bwd(const void* z, const void* syn,
                              const void* g, void* dz,
                              void* grads, void* scratch, int batch, int h_in,
                              int w_in, int h_win, int w_win, int hidden,
-                             int n_layers, void* stream) {
-  return decoder_bwd::launch<true>(
-      static_cast<const float*>(z), static_cast<const float*>(syn),
-      static_cast<const int*>(rows), static_cast<const int*>(cols),
-      static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
-      static_cast<const float*>(wl), static_cast<const float*>(wtslab),
-      static_cast<const float*>(g), static_cast<float*>(dz),
-      static_cast<float*>(grads), static_cast<float*>(scratch), batch, h_in,
-      w_in, h_win, w_win, 1, 1, hidden, n_layers,
-      static_cast<cudaStream_t>(stream));
+                             int n_layers, int bf16, void* stream) {
+  return decoder_bwd::launch_prec<true>(
+      bf16, z, static_cast<const float*>(syn), static_cast<const int*>(rows),
+      static_cast<const int*>(cols), w0, static_cast<const float*>(b0),
+      wslab, static_cast<const float*>(bcat), wl, wtslab,
+      static_cast<const float*>(g), dz, static_cast<float*>(grads),
+      static_cast<float*>(scratch), batch, h_in, w_in, h_win, w_win, 1, 1,
+      hidden, n_layers, static_cast<cudaStream_t>(stream));
 }
 
 const char* decoder_bwd_error_string(int code) {

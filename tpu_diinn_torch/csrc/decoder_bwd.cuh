@@ -1,5 +1,5 @@
-// Device code of the fused DIINN mode-3 decoder backward (fp32 accuracy on
-// the tensor cores, sm_90a).
+// Device code of the fused DIINN mode-3 decoder backward on the tensor
+// cores (sm_90a), in fp32 accuracy (Tf32) or the bf16 mode (Bf16).
 //
 // The VJP of the chain of hopper_chain.cuh for an upstream gradient g
 // (one RGB gradient per HR query):
@@ -51,6 +51,15 @@
 //
 // The recomputed forward is hopper_chain.cuh's chain_forward, the routine
 // the forward kernels run, so it computes the forward's q bit for bit.
+//
+// In the Bf16 policy (the JAX package's bf16 mode, its _chain_bwd and
+// _bwd_kernel_int) every product takes bf16 operands and sums in fp32: the
+// recomputed forward as the forward kernels run it; dq = bf16(g) @ Wl^T
+// and bf16(d) @ [Wkq | Wq]^T; dWcat = q^T bf16(d), dW0 = bf16(syn)^T
+// bf16(dpre_0) and dWl = q^T bf16(g), q already bf16. The elementwise
+// work, the bias gradients (sums of the unrounded d, dpre_0 and g) and the
+// scratch stay fp32; dz sums in fp32 and is rounded to bf16 once, as it
+// is stored.
 
 #pragma once
 
@@ -109,33 +118,36 @@ struct Plan {
 
 // Recompute and backprop the chain for one tile of kTileM queries.
 // wslab and wtslab hold each layer's [Wkq | Wq] (H x 2H) and its
-// transpose (2H x H) as split wgmma B slabs (mma_b_slabs in the wrapper).
-template <int kNC, bool kWindow>
+// transpose (2H x H) as wgmma B slabs (mma_b_slabs in the wrapper), in
+// the policy P's type, as z, w0 and wl.
+template <int kNC, bool kWindow, class P>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_bwd_chain_kernel(const float* __restrict__ z,
+decode_bwd_chain_kernel(const typename P::Z* __restrict__ z,
                         const float* __restrict__ syn,
                         const int* __restrict__ rows,
                         const int* __restrict__ cols,
-                        const float* __restrict__ w0,
+                        const typename P::W* __restrict__ w0,
                         const float* __restrict__ b0,
-                        const float* __restrict__ wslab,
+                        const typename P::W* __restrict__ wslab,
                         const float* __restrict__ bcat,
-                        const float* __restrict__ wl,
-                        const float* __restrict__ wtslab,
+                        const typename P::W* __restrict__ wl,
+                        const typename P::W* __restrict__ wtslab,
                         const float* __restrict__ g,
                         float* __restrict__ scratch, int batch, int h_in,
                         int w_in, int h_out, int w_out, int s_h, int s_w,
                         int n_layers) {
   constexpr int kHidden = kNC * 32;
-  using T = ChainTiling<kHidden>;
+  using T = ChainTiling<kHidden, P>;
+  using A = typename P::A;
+  using W = typename P::W;
   constexpr int kNB = T::kND / 8;     // n8 blocks a thread holds in dq
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* zoff = reinterpret_cast<long long*>(smem_raw);
   float* synv = reinterpret_cast<float*>(smem_raw + kTileM * 8);
   float* gv = synv + kTileM * 3;
-  float* q_cur = reinterpret_cast<float*>(smem_raw + T::kHead);
-  float* q_next = q_cur + kTileM * T::kLdQ;
-  float* dtile = q_cur;
+  A* q_cur = reinterpret_cast<A*>(smem_raw + T::kHead);
+  A* q_next = q_cur + kTileM * T::kLdQ;
+  A* dtile = q_cur;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -148,10 +160,10 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
   const bool producer = (tid & 127) == 0;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + T::kBars) +
                    wg * kStages;
-  float* ring_f = reinterpret_cast<float*>(smem_raw + T::kRingF) +
-                  wg * kStages * T::kSlabF;
-  float* ring_d = reinterpret_cast<float*>(smem_raw + T::kRingD) +
-                  wg * kStages * T::kSlabD;
+  W* ring_f = reinterpret_cast<W*>(smem_raw + T::kRingF) +
+              wg * kStages * T::kSlabF;
+  W* ring_d = reinterpret_cast<W*>(smem_raw + T::kRingD) +
+              wg * kStages * T::kSlabD;
   uint32_t phase = 0;
   const long long n_query = static_cast<long long>(batch) * h_out * w_out;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTileM;
@@ -164,15 +176,16 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
   float* sp0 = scratch + plan.s_p0;
   float* sz0 = scratch + plan.s_z0;
 
-  // 1) each query's LR pixel (-1 past the ragged edge), syn and g; the
-  //    rings' barriers
-  const long long qi = load_queries<kWindow>(
+  // 1) each query's LR pixel (-1 past the ragged edge), syn and g (g as
+  //    the dq product's operand, rounded to the policy's type); the rings'
+  //    barriers
+  const long long qi = load_queries<kWindow, P>(
       zoff, synv, syn, rows, cols, batch, h_in, w_in, h_out, w_out, s_h, s_w,
       static_cast<long long>(n_layers) * kHidden);
   if (tid < kTileM) {
 #pragma unroll
     for (int o = 0; o < 3; ++o)
-      gv[tid * 3 + o] = qi >= 0 ? g[qi * 3 + o] : 0.f;
+      gv[tid * 3 + o] = qi >= 0 ? P::round(g[qi * 3 + o]) : 0.f;
   }
   if (tid == 0) {
     uint64_t* all = reinterpret_cast<uint64_t*>(smem_raw + T::kBars);
@@ -182,7 +195,7 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
 
   // 2) and 3) the forward (chain_forward, as the forward kernels run it),
   //    storing q_i (i = 0..L-1), k_i and a_i (i >= 1) to the scratch
-  chain_forward<kHidden, false>(
+  chain_forward<P, kHidden, false>(
       zoff, synv, z, w0, b0, wslab, bcat, n_layers, q_cur, q_next, ring_f,
       bars, phase,
       [&](int layer, int, int m, int j, float q0, float q1, float k0,
@@ -208,9 +221,10 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
     const int j = jw + 8 * i + 2 * tig;
 #pragma unroll
     for (int e = 0; e < 2; ++e)
-      dq[4 * i + 2 * hh + e] = gv[m * 3 + 0] * wl[(j + e) * 3 + 0] +
-                               gv[m * 3 + 1] * wl[(j + e) * 3 + 1] +
-                               gv[m * 3 + 2] * wl[(j + e) * 3 + 2];
+      dq[4 * i + 2 * hh + e] =
+          gv[m * 3 + 0] * P::to_float(wl[(j + e) * 3 + 0]) +
+          gv[m * 3 + 1] * P::to_float(wl[(j + e) * 3 + 1]) +
+          gv[m * 3 + 2] * P::to_float(wl[(j + e) * 3 + 2]);
   }
   // the d tile and the dq rings overlap the forward's q tiles, written by
   // plain stores; the rings are written by the TMA unit from here on
@@ -262,17 +276,17 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
             store2(dst, dk[0], dk[1]);
             store2(dst + kHidden, dp[0], dp[1]);
           }
-          store2(dtile + m * T::kLdD + j, dk[0], dk[1]);
-          store2(dtile + m * T::kLdD + kHidden + j, dp[0], dp[1]);
+          P::store_a2(dtile + m * T::kLdD + j, dk[0], dk[1]);
+          P::store_a2(dtile + m * T::kLdD + kHidden + j, dp[0], dp[1]);
         }
     }
 #pragma unroll
     for (int c = 0; c < T::kND / 2; ++c) dq[c] = 0.f;
     __syncthreads();  // publish the d tile
-    wg_product<T::kND, 2 * kHidden, T::kLdD, false>(
+    wg_product<P, T::kND, 2 * kHidden, T::kLdD, false>(
         dq, dtile, wrow0,
-        wtslab + (static_cast<long long>(layer - 1) * (2 * kHidden / 8) * 2 +
-                  wg) * T::kSlabD,
+        wtslab + (static_cast<long long>(layer - 1) *
+                      (2 * kHidden / P::kK) * 2 + wg) * T::kSlabD,
         2LL * T::kSlabD, ring_d, bars, phase, producer, lane);
     __syncthreads();  // every warpgroup has read the d tile
   }
@@ -284,13 +298,13 @@ decode_bwd_chain_kernel(const float* __restrict__ z,
     const int j = jw + 8 * i + 2 * tig;
     const long long off = zoff[m];
     if (off < 0) continue;
-    const float2 zz = load2(z + off + j);
+    const float2 zz = P::load_z2(z + off + j);
     const float kv[2] = {fmaxf(zz.x, 0.f), fmaxf(zz.y, 0.f)};
     float p0[2], d0[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float s, co;
-      poly_sincos(pre0(synv + m * 3, w0, b0, j + e, kHidden), s, co);
+      poly_sincos(pre0<P>(synv + m * 3, w0, b0, j + e, kHidden), s, co);
       const float d = dq[4 * i + 2 * hh + e];
       p0[e] = (d * kv[e]) * co;
       d0[e] = d * s;
@@ -317,12 +331,14 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ v, int n,
 }
 
 // dz[b, r, c, ch]: the sum of the chain's per-query dz over the queries
-// that read LR pixel (b, r, c); band 0 is masked by z_0 > 0.
-template <bool kWindow>
+// that read LR pixel (b, r, c); band 0 is masked by z_0 > 0. The sum is
+// fp32, stored in z's type (rounded once, for Bf16).
+template <bool kWindow, class P>
 __global__ void __launch_bounds__(256)
-fold_dz_kernel(const float* __restrict__ z, const int* __restrict__ rows,
-               const int* __restrict__ cols,
-               const float* __restrict__ scratch, float* __restrict__ dz,
+fold_dz_kernel(const typename P::Z* __restrict__ z,
+               const int* __restrict__ rows, const int* __restrict__ cols,
+               const float* __restrict__ scratch,
+               typename P::Z* __restrict__ dz,
                int batch, int h_in, int w_in, int h_out, int w_out, int s_h,
                int s_w, int hidden, int n_layers) {
   const long long c_all = static_cast<long long>(n_layers) * hidden;
@@ -366,8 +382,8 @@ fold_dz_kernel(const float* __restrict__ z, const int* __restrict__ rows,
     const long long row = (b * h_out + y) * w_out;
     for (int x = x0; x < x1; ++x) acc += src[(row + x) * stride];
   }
-  if (band == 0 && !(z[pix * c_all + j] > 0.f)) acc = 0.f;
-  dz[idx] = acc;
+  if (band == 0 && !(P::to_float(z[pix * c_all + j]) > 0.f)) acc = 0.f;
+  dz[idx] = P::from_float(acc);
 }
 
 
@@ -384,7 +400,10 @@ fold_dz_kernel(const float* __restrict__ z, const int* __restrict__ rows,
 // kWgradStages-deep cp.async ring; each slice's q is split and rewritten
 // K-major (queries inner) into one of two B slab buffers while the
 // previous slice's products run, and each slice's twelve products sum in
-// a fresh accumulator that is then added in fp32 (see 3xTF32 above).
+// a fresh accumulator that is then added in fp32 (see 3xTF32 above). In
+// the Bf16 policy both operands are rounded to bf16 on their way into the
+// fragments and slabs, and a slice is two wgmma BF16 k16 steps; the column
+// sums take the unrounded d.
 template <int kHidden>
 struct WgradTiling {
   static constexpr int kTP = kHidden < 128 ? kHidden : 128;  // wgmma N
@@ -399,7 +418,7 @@ struct WgradTiling {
   static_assert(kTN % 64 == 0 && kTP % 16 == 0, "wgrad tiling");
 };
 
-template <int kHidden>
+template <int kHidden, class P>
 __global__ void __launch_bounds__(WgradTiling<kHidden>::kThreads, 1)
 wgrad_kernel(const float* __restrict__ q, const float* __restrict__ d,
              long long n_query, int n_split, float* __restrict__ part,
@@ -461,36 +480,56 @@ wgrad_kernel(const float* __restrict__ q, const float* __restrict__ d,
   };
   // slice it's q, split, into slab buffer it % 2 in the chain's B layout:
   // k8 step k8, hi | lo, element (m = 8 k8 + 4 h + c, p = 8 g + r) at [g,
-  // h, r, c]; a warp writes 32 consecutive floats
+  // h, r, c]; a warp writes 32 consecutive floats. Bf16: k16 step k16,
+  // element (m = 16 k16 + 8 h + c, p = 8 g + r) at [g, h, r, c], a thread
+  // writing pairs of c.
   auto transform = [&](int it) {
     if (it >= n_slices) return;
     const float* qs = stages + (it % kWgradStages) * T::kStage +
                       kSliceM * T::kLdD;
-    float* slab = slabs + (it & 1) * T::kSlab;
-    const int c = lane & 3;
-    const int r = lane >> 2;
-    constexpr int kG = T::kTP / 8;
-    constexpr int kPerWarp = kK8 * 2 * kG / (T::kThreads / 32);
-    float v[kPerWarp];
+    if constexpr (!P::kBf16) {
+      float* slab = slabs + (it & 1) * T::kSlab;
+      const int c = lane & 3;
+      const int r = lane >> 2;
+      constexpr int kG = T::kTP / 8;
+      constexpr int kPerWarp = kK8 * 2 * kG / (T::kThreads / 32);
+      float v[kPerWarp];
 #pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const int x = warp + i * (T::kThreads / 32);
-      const int g = x % kG;
-      const int h = (x / kG) & 1;
-      const int k8 = x / (2 * kG);
-      v[i] = qs[(8 * k8 + 4 * h + c) * T::kLdQ + 8 * g + r];
-    }
+      for (int i = 0; i < kPerWarp; ++i) {
+        const int x = warp + i * (T::kThreads / 32);
+        const int g = x % kG;
+        const int h = (x / kG) & 1;
+        const int k8 = x / (2 * kG);
+        v[i] = qs[(8 * k8 + 4 * h + c) * T::kLdQ + 8 * g + r];
+      }
 #pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const int x = warp + i * (T::kThreads / 32);
-      const int g = x % kG;
-      const int h = (x / kG) & 1;
-      const int k8 = x / (2 * kG);
-      uint32_t hi, lo;
-      split_tf32(v[i], hi, lo);
-      float* dst = slab + k8 * 2 * T::kTP * 8 + g * 64 + h * 32 + lane;
-      dst[0] = u2f(hi);
-      dst[T::kTP * 8] = u2f(lo);
+      for (int i = 0; i < kPerWarp; ++i) {
+        const int x = warp + i * (T::kThreads / 32);
+        const int g = x % kG;
+        const int h = (x / kG) & 1;
+        const int k8 = x / (2 * kG);
+        uint32_t hi, lo;
+        split_tf32(v[i], hi, lo);
+        float* dst = slab + k8 * 2 * T::kTP * 8 + g * 64 + h * 32 + lane;
+        dst[0] = u2f(hi);
+        dst[T::kTP * 8] = u2f(lo);
+      }
+    } else {
+      uint32_t* slab = reinterpret_cast<uint32_t*>(slabs + (it & 1) *
+                                                    T::kSlab);
+      constexpr int kPairs = kSliceM * T::kTP / 2;
+      static_assert(kPairs % T::kThreads == 0, "wgrad bf16 slab");
+#pragma unroll
+      for (int i = 0; i < kPairs / T::kThreads; ++i) {
+        const int e = 2 * (tid + i * T::kThreads);
+        const int c = e & 7;
+        const int r = (e >> 3) & 7;
+        const int h = (e >> 6) & 1;
+        const int g = (e >> 7) % (T::kTP / 8);
+        const int k16 = (e >> 7) / (T::kTP / 8);
+        const float* src = qs + (16 * k16 + 8 * h + c) * T::kLdQ + 8 * g + r;
+        slab[e >> 1] = pack_bf16(src[0], src[T::kLdQ]);
+      }
     }
     fence_proxy_async();
   };
@@ -517,42 +556,73 @@ wgrad_kernel(const float* __restrict__ q, const float* __restrict__ d,
     load_slice(it + kWgradStages - 1);
     async_commit();
     const float* ds = stages + (it % kWgradStages) * T::kStage;
-    uint32_t ah[kK8][4], al[kK8][4];
-#pragma unroll
-    for (int k8 = 0; k8 < kK8; ++k8) {
-      // A = d^T: a (n, k) = ds[k][n]
-      const float* ap = ds + (8 * k8 + tig) * T::kLdD + wrow0 + gid;
-      split_tf32(ap[0], ah[k8][0], al[k8][0]);
-      split_tf32(ap[8], ah[k8][1], al[k8][1]);
-      split_tf32(ap[4 * T::kLdD], ah[k8][2], al[k8][2]);
-      split_tf32(ap[4 * T::kLdD + 8], ah[k8][3], al[k8][3]);
-    }
     if (colsum && tid < T::kTN) {
 #pragma unroll 8
       for (int r = 0; r < kSliceM; ++r) bsum += ds[r * T::kLdD + tid];
     }
-    const float* slab = slabs + (it & 1) * T::kSlab;
     float t[T::kTP / 2];
-    wgmma_fence();
+    if constexpr (!P::kBf16) {
+      uint32_t ah[kK8][4], al[kK8][4];
 #pragma unroll
-    for (int k8 = 0; k8 < kK8; ++k8) {
-      const float* b = slab + k8 * 2 * T::kTP * 8;
-      if (k8 == 0)
-        wgmma_tf32<T::kTP, true>(t, al[k8], b);
-      else
-        wgmma_tf32<T::kTP, false>(t, al[k8], b);
-      wgmma_tf32<T::kTP, false>(t, ah[k8], b + T::kTP * 8);
-      wgmma_tf32<T::kTP, false>(t, ah[k8], b);
-    }
-    wgmma_commit();
-    transform(it + 1);  // meanwhile, into the other slab
-    wgmma_wait<0>();
-    fence_regs(t);
-    // the products read ah and al until the wait: keep their registers
+      for (int k8 = 0; k8 < kK8; ++k8) {
+        // A = d^T: a (n, k) = ds[k][n]
+        const float* ap = ds + (8 * k8 + tig) * T::kLdD + wrow0 + gid;
+        split_tf32(ap[0], ah[k8][0], al[k8][0]);
+        split_tf32(ap[8], ah[k8][1], al[k8][1]);
+        split_tf32(ap[4 * T::kLdD], ah[k8][2], al[k8][2]);
+        split_tf32(ap[4 * T::kLdD + 8], ah[k8][3], al[k8][3]);
+      }
+      const float* slab = slabs + (it & 1) * T::kSlab;
+      wgmma_fence();
 #pragma unroll
-    for (int k8 = 0; k8 < kK8; ++k8) {
-      fence_regs(ah[k8]);
-      fence_regs(al[k8]);
+      for (int k8 = 0; k8 < kK8; ++k8) {
+        const float* b = slab + k8 * 2 * T::kTP * 8;
+        if (k8 == 0)
+          wgmma_tf32<T::kTP, true>(t, al[k8], b);
+        else
+          wgmma_tf32<T::kTP, false>(t, al[k8], b);
+        wgmma_tf32<T::kTP, false>(t, ah[k8], b + T::kTP * 8);
+        wgmma_tf32<T::kTP, false>(t, ah[k8], b);
+      }
+      wgmma_commit();
+      transform(it + 1);  // meanwhile, into the other slab
+      wgmma_wait<0>();
+      fence_regs(t);
+      // the products read ah and al until the wait: keep their registers
+#pragma unroll
+      for (int k8 = 0; k8 < kK8; ++k8) {
+        fence_regs(ah[k8]);
+        fence_regs(al[k8]);
+      }
+    } else {
+      constexpr int kK16 = kSliceM / 16;
+      uint32_t a16[kK16][4];
+#pragma unroll
+      for (int k16 = 0; k16 < kK16; ++k16) {
+        // A = bf16(d)^T: a (n, k) = ds[k][n], pairs of k
+        const float* ap = ds + (16 * k16 + 2 * tig) * T::kLdD + wrow0 + gid;
+        a16[k16][0] = pack_bf16(ap[0], ap[T::kLdD]);
+        a16[k16][1] = pack_bf16(ap[8], ap[T::kLdD + 8]);
+        a16[k16][2] = pack_bf16(ap[8 * T::kLdD], ap[9 * T::kLdD]);
+        a16[k16][3] = pack_bf16(ap[8 * T::kLdD + 8], ap[9 * T::kLdD + 8]);
+      }
+      const uint16_t* slab =
+          reinterpret_cast<const uint16_t*>(slabs + (it & 1) * T::kSlab);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < kK16; ++k16) {
+        const uint16_t* b = slab + k16 * T::kTP * 16;
+        if (k16 == 0)
+          wgmma_bf16<T::kTP, true>(t, a16[k16], b);
+        else
+          wgmma_bf16<T::kTP, false>(t, a16[k16], b);
+      }
+      wgmma_commit();
+      transform(it + 1);  // meanwhile, into the other slab
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int k16 = 0; k16 < kK16; ++k16) fence_regs(a16[k16]);
     }
 #pragma unroll
     for (int c = 0; c < T::kTP / 2; ++c) acc[c] += t[c];
@@ -582,13 +652,14 @@ wgrad_kernel(const float* __restrict__ q, const float* __restrict__ d,
 // written at part[split, o_prod + (t_major ? t * n_wide + n : n * nt + t)],
 // and, where the offsets are >= 0, the column sums of W (o_wsum + n) and
 // of T (o_tsum + n for n < nt). Warp w takes rows w, w + kThinWarps, ...;
-// the warps' partials are added in warp order.
+// the warps' partials are added in warp order. With bf16 set, the product
+// takes both factors rounded to bf16 (the column sums do not).
 __global__ void __launch_bounds__(kThinThreads)
 thin_kernel(const float* __restrict__ w, int ldw, int n_wide,
             const float* __restrict__ tm, int ldt, int nt, long long t_rows,
             long long n_query, float* __restrict__ part,
             long long part_stride, long long o_prod, int t_major,
-            long long o_wsum, long long o_tsum) {
+            long long o_wsum, long long o_tsum, int bf16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* red = reinterpret_cast<float*>(smem_raw);  // [warp][5][32]
   const int lane = threadIdx.x & 31;
@@ -603,9 +674,16 @@ thin_kernel(const float* __restrict__ w, int ldw, int n_wide,
     for (long long m = m_begin + warp; m < m_end; m += kThinWarps) {
       const float v = w[m * ldw + n];
       const float* trow = tm + (m % t_rows) * ldt;
-      v5[0] = fmaf(trow[0], v, v5[0]);
-      if (nt > 1) v5[1] = fmaf(trow[1], v, v5[1]);
-      if (nt > 2) v5[2] = fmaf(trow[2], v, v5[2]);
+      if (bf16) {
+        const float vr = round_bf16(v);
+        v5[0] = fmaf(round_bf16(trow[0]), vr, v5[0]);
+        if (nt > 1) v5[1] = fmaf(round_bf16(trow[1]), vr, v5[1]);
+        if (nt > 2) v5[2] = fmaf(round_bf16(trow[2]), vr, v5[2]);
+      } else {
+        v5[0] = fmaf(trow[0], v, v5[0]);
+        if (nt > 1) v5[1] = fmaf(trow[1], v, v5[1]);
+        if (nt > 2) v5[2] = fmaf(trow[2], v, v5[2]);
+      }
       v5[3] += v;
       if (n < nt) v5[4] += trow[n];
     }
@@ -641,22 +719,22 @@ reduce_kernel(const float* __restrict__ part, int n_split, long long n_grad,
 // The whole backward as a sequence of launches. `launch(kernel, grid,
 // block, smem, args...)` is the caller's: a CUDA launch on its stream, or
 // a host emulation in a test harness. Returns the first error.
-template <int kNC, bool kWindow, class Launch>
-int run_bwd(Launch& launch, const float* z, const float* syn,
-            const int* rows, const int* cols, const float* w0,
-            const float* b0, const float* wslab, const float* bcat,
-            const float* wl, const float* wtslab, const float* g,
-            float* dz, float* grads, float* scratch, int batch, int h_in,
-            int w_in, int h_out, int w_out, int s_h, int s_w,
-            int n_layers) {
+template <int kNC, bool kWindow, class P, class Launch>
+int run_bwd(Launch& launch, const typename P::Z* z, const float* syn,
+            const int* rows, const int* cols, const typename P::W* w0,
+            const float* b0, const typename P::W* wslab, const float* bcat,
+            const typename P::W* wl, const typename P::W* wtslab,
+            const float* g, typename P::Z* dz, float* grads, float* scratch,
+            int batch, int h_in, int w_in, int h_out, int w_out, int s_h,
+            int s_w, int n_layers) {
   constexpr int kHidden = kNC * 32;
   const long long m = static_cast<long long>(batch) * h_out * w_out;
   const Plan plan(m, kHidden, n_layers);
   int err = 0;
   if (m > 0) {
-    err = launch(decode_bwd_chain_kernel<kNC, kWindow>,
+    err = launch(decode_bwd_chain_kernel<kNC, kWindow, P>,
                  static_cast<unsigned>((m + kTileM - 1) / kTileM), kThreads,
-                 ChainTiling<kHidden>::kSmem, z, syn, rows, cols, w0, b0,
+                 ChainTiling<kHidden, P>::kSmem, z, syn, rows, cols, w0, b0,
                  wslab, bcat, wl, wtslab, g, scratch, batch, h_in, w_in,
                  h_out, w_out, s_h, s_w, n_layers);
     if (err) return err;
@@ -664,7 +742,7 @@ int run_bwd(Launch& launch, const float* z, const float* syn,
   const long long n_dz =
       static_cast<long long>(batch) * h_in * w_in * n_layers * kHidden;
   if (n_dz > 0) {
-    err = launch(fold_dz_kernel<kWindow>,
+    err = launch(fold_dz_kernel<kWindow, P>,
                  static_cast<unsigned>((n_dz + 255) / 256), 256, 0, z, rows,
                  cols, static_cast<const float*>(scratch), dz, batch, h_in,
                  w_in, h_out, w_out, s_h, s_w, kHidden, n_layers);
@@ -673,7 +751,7 @@ int run_bwd(Launch& launch, const float* z, const float* syn,
   float* part = scratch + plan.s_part;
   if (m > 0 && n_layers > 1) {
     using W = WgradTiling<kHidden>;
-    err = launch(wgrad_kernel<kHidden>,
+    err = launch(wgrad_kernel<kHidden, P>,
                  dim3(kHidden / W::kTP, 2 * kHidden / W::kTN,
                       plan.n_split * (n_layers - 1)),
                  W::kThreads, W::kSmem,
@@ -688,7 +766,8 @@ int run_bwd(Launch& launch, const float* z, const float* syn,
     err = launch(thin_kernel, grid, kThinThreads, kThinSmem,
                  static_cast<const float*>(scratch + plan.s_p0), kHidden,
                  kHidden, syn, 3, 3, static_cast<long long>(h_out) * w_out,
-                 m, part, plan.n_grad, plan.o_w0, 1, plan.o_b0, -1LL);
+                 m, part, plan.n_grad, plan.o_w0, 1, plan.o_b0, -1LL,
+                 int{P::kBf16});
     if (err) return err;
     // dWl (H, 3) and dbl: W = q_{L-1}, T = g
     err = launch(thin_kernel, grid, kThinThreads, kThinSmem,
@@ -696,7 +775,7 @@ int run_bwd(Launch& launch, const float* z, const float* syn,
                      scratch + plan.s_q +
                      static_cast<long long>(n_layers - 1) * m * kHidden),
                  kHidden, kHidden, g, 3, 3, m, m, part, plan.n_grad,
-                 plan.o_wl, 0, -1LL, plan.o_bl);
+                 plan.o_wl, 0, -1LL, plan.o_bl, int{P::kBf16});
     if (err) return err;
   }
   return launch(reduce_kernel,

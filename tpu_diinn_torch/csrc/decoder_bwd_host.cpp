@@ -5,11 +5,12 @@
 //
 //   g++ -std=c++20 -O1 -pthread -I tpu_diinn_torch/csrc
 //       tpu_diinn_torch/csrc/decoder_bwd_host.cpp -o decoder_bwd_host
-//   decoder_bwd_host DIR WINDOW B H_IN W_IN H_OUT W_OUT S_H S_W HIDDEN L
+//   decoder_bwd_host DIR WINDOW B H_IN W_IN H_OUT W_OUT S_H S_W HIDDEN L BF16
 //
 // DIR holds the raw little-endian inputs z, syn, w0, b0, wf, bcat, wl, wt,
-// g (float32; wf and wt the wrapper's mma_b_slabs) and rows, cols (int32);
-// the program writes dz_out and grads_out (the flat Plan layout) there.
+// g (float32; with BF16 = 1 z, w0, wf, wl and wt are bf16 bits; wf and wt
+// the wrapper's mma_b_slabs) and rows, cols (int32); the program writes
+// dz_out (z's type) and grads_out (float32, the flat Plan layout) there.
 
 #include "hopper_host.h"
 
@@ -19,8 +20,15 @@ namespace decoder_bwd {
 alignas(16) unsigned char smem_raw[kHostSmem];
 }  // namespace decoder_bwd
 
-template <int kNC, bool kWindow>
+template <class T>
+static const T* data(const std::vector<char>& v) {
+  return reinterpret_cast<const T*>(v.data());
+}
+
+template <int kNC, bool kWindow, class P>
 static int run(const std::string& dir, const int* a) {
+  using Z = typename P::Z;
+  using W = typename P::W;
   auto in = [&](const char* name) { return slurp(dir + "/" + name); };
   const auto z = in("z"), syn = in("syn"), w0 = in("w0"), b0 = in("b0"),
              wf = in("wf"), bcat = in("bcat"), wl = in("wl"), wt = in("wt"),
@@ -30,35 +38,47 @@ static int run(const std::string& dir, const int* a) {
   const decoder_bwd::Plan plan(static_cast<long long>(batch) * h_out * w_out,
                                hidden, L);
   std::vector<float> scratch(plan.s_total, NAN);
-  std::vector<float> dz(static_cast<size_t>(batch) * h_in * w_in * L * hidden,
-                        NAN);
+  std::vector<Z> dz(static_cast<size_t>(batch) * h_in * w_in * L * hidden,
+                    Z(0x7fc0));
   std::vector<float> grads(plan.n_grad, NAN);
   HostLaunch launch{decoder_bwd::smem_raw};
-  const int err = decoder_bwd::run_bwd<kNC, kWindow>(
-      launch, floats(z), floats(syn), ints(rows), ints(cols), floats(w0),
-      floats(b0), floats(wf), floats(bcat), floats(wl), floats(wt),
+  const int err = decoder_bwd::run_bwd<kNC, kWindow, P>(
+      launch, data<Z>(z), floats(syn), ints(rows), ints(cols), data<W>(w0),
+      floats(b0), data<W>(wf), floats(bcat), data<W>(wl), data<W>(wt),
       floats(g), dz.data(), grads.data(), scratch.data(), batch, h_in, w_in,
       h_out, w_out, s_h, s_w, L);
   if (err) return err;
-  dump(dir + "/dz_out", dz);
+  if constexpr (sizeof(Z) == 2)
+    dump_halves(dir + "/dz_out", dz);
+  else
+    dump(dir + "/dz_out", dz);
   dump(dir + "/grads_out", grads);
   return 0;
 }
 
+template <class P>
+static int dispatch(const std::string& dir, bool window, const int* a) {
+  switch (a[7]) {
+    case 32:
+      return window ? run<1, true, P>(dir, a) : run<1, false, P>(dir, a);
+    case 64:
+      return window ? run<2, true, P>(dir, a) : run<2, false, P>(dir, a);
+    case 256:
+      return window ? run<8, true, P>(dir, a) : run<8, false, P>(dir, a);
+    default: return 2;
+  }
+}
+
 int main(int argc, char** argv) {
-  if (argc != 12) {
+  if (argc != 13) {
     fprintf(stderr, "usage: %s DIR WINDOW B H_IN W_IN H_OUT W_OUT S_H S_W "
-                    "HIDDEN L\n", argv[0]);
+                    "HIDDEN L BF16\n", argv[0]);
     return 2;
   }
   const std::string dir = argv[1];
   const bool window = atoi(argv[2]) != 0;
   int a[9];
   for (int i = 0; i < 9; ++i) a[i] = atoi(argv[3 + i]);
-  switch (a[7]) {
-    case 32: return window ? run<1, true>(dir, a) : run<1, false>(dir, a);
-    case 64: return window ? run<2, true>(dir, a) : run<2, false>(dir, a);
-    case 256: return window ? run<8, true>(dir, a) : run<8, false>(dir, a);
-    default: return 2;
-  }
+  return atoi(argv[12]) ? dispatch<hopper_chain::Bf16>(dir, window, a)
+                        : dispatch<hopper_chain::Tf32>(dir, window, a);
 }

@@ -1,5 +1,5 @@
 // Fused DIINN mode-3 decoder forward for Hopper (sm_90a): fp32 accuracy
-// from 3xTF32 tensor-core products.
+// from 3xTF32 tensor-core products, or the bf16 mode from bf16 ones.
 //
 // Replaces two Pallas TPU kernels of tpu_diinn/kernels/decoder_fused.py:
 //
@@ -34,6 +34,12 @@
 // tile) and the work between products do not hide behind them. The
 // backward's chain kernel recomputes the forward with the same routine.
 //
+// The bf16 instances (bf16 = 1 at the interface) run the JAX package's bf16
+// mode: z, W0, [Wkq | Wq] and Wl in bf16, biases, syn and out fp32; q is
+// rounded to bf16 before every product (the head's too) and each product
+// is one wgmma BF16 per k16 step with fp32 sums (989 TFLOP/s peak); the
+// elementwise work stays fp32.
+//
 // Interface: plain C, loaded with ctypes. Each launcher runs on the
 // caller's current device (the Python wrapper selects the tensors' device
 // around the call), launches on the caller's stream, allocates nothing and
@@ -45,19 +51,25 @@
 
 namespace decoder_fused {
 
-template <bool kWindow>
-static int launch(const float* z, const float* syn, const int* rows,
-                  const int* cols, const float* w0, const float* b0,
-                  const float* wslab, const float* bcat, const float* wl,
+template <bool kWindow, class P>
+static int launch(const void* z_, const float* syn, const int* rows,
+                  const int* cols, const void* w0_, const float* b0,
+                  const void* wslab_, const float* bcat, const void* wl_,
                   const float* bl, float* out, int batch, int h_in, int w_in,
                   int h_out, int w_out, int s_h, int s_w, int hidden,
                   int n_layers, cudaStream_t stream) {
+  using Z = typename P::Z;
+  using W = typename P::W;
+  const Z* z = static_cast<const Z*>(z_);
+  const W* w0 = static_cast<const W*>(w0_);
+  const W* wslab = static_cast<const W*>(wslab_);
+  const W* wl = static_cast<const W*>(wl_);
   CudaLaunch launcher{stream};
 #define DECODER_FUSED_CASE(NC)                                              \
   case NC:                                                                  \
-    return run_fwd<NC, kWindow>(launcher, z, syn, rows, cols, w0, b0, wslab,\
-                                bcat, wl, bl, out, batch, h_in, w_in, h_out,\
-                                w_out, s_h, s_w, n_layers);
+    return run_fwd<NC, kWindow, P>(launcher, z, syn, rows, cols, w0, b0,    \
+                                   wslab, bcat, wl, bl, out, batch, h_in,   \
+                                   w_in, h_out, w_out, s_h, s_w, n_layers);
   // hidden 32, 64, 256 (the widths a config or test uses): one
   // instantiation each keeps the build short
   switch (hidden % 32 == 0 ? hidden / 32 : 0) {
@@ -70,6 +82,24 @@ static int launch(const float* z, const float* syn, const int* rows,
 #undef DECODER_FUSED_CASE
 }
 
+template <bool kWindow>
+static int launch_prec(int bf16, const void* z, const float* syn,
+                       const int* rows, const int* cols, const void* w0,
+                       const float* b0, const void* wslab, const float* bcat,
+                       const void* wl, const float* bl, float* out,
+                       int batch, int h_in, int w_in, int h_out, int w_out,
+                       int s_h, int s_w, int hidden, int n_layers,
+                       cudaStream_t stream) {
+  return bf16 ? launch<kWindow, Bf16>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                      wl, bl, out, batch, h_in, w_in, h_out,
+                                      w_out, s_h, s_w, hidden, n_layers,
+                                      stream)
+              : launch<kWindow, Tf32>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                      wl, bl, out, batch, h_in, w_in, h_out,
+                                      w_out, s_h, s_w, hidden, n_layers,
+                                      stream);
+}
+
 }  // namespace decoder_fused
 
 extern "C" {
@@ -77,19 +107,19 @@ extern "C" {
 // z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), w0, b0, bcat,
 // wl and bl as the wrapper packs them (pack_params), wslab the split wgmma
 // B slabs of [Wkq | Wq] (the wrapper's mma_b_slabs) -> out (B, s_h*H_in,
-// s_w*W_in, 3); all fp32, contiguous, 16-byte aligned.
+// s_w*W_in, 3); all fp32 (bf16 = 0), or z, w0, wslab and wl bf16 (bf16 =
+// 1); contiguous, 16-byte aligned.
 int launch_decode_int_fwd(const void* z, const void* syn, const void* w0,
                           const void* b0, const void* wslab,
                           const void* bcat, const void* wl, const void* bl,
                           void* out, int batch, int h_in, int w_in, int s_h,
-                          int s_w, int hidden, int n_layers, void* stream) {
-  return decoder_fused::launch<false>(
-      static_cast<const float*>(z), static_cast<const float*>(syn),
-      nullptr, nullptr, static_cast<const float*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(wslab),
-      static_cast<const float*>(bcat), static_cast<const float*>(wl),
-      static_cast<const float*>(bl), static_cast<float*>(out), batch, h_in,
-      w_in, s_h * h_in, s_w * w_in, s_h, s_w, hidden, n_layers,
+                          int s_w, int hidden, int n_layers, int bf16,
+                          void* stream) {
+  return decoder_fused::launch_prec<false>(
+      bf16, z, static_cast<const float*>(syn), nullptr, nullptr, w0,
+      static_cast<const float*>(b0), wslab, static_cast<const float*>(bcat),
+      wl, static_cast<const float*>(bl), static_cast<float*>(out), batch,
+      h_in, w_in, s_h * h_in, s_w * w_in, s_h, s_w, hidden, n_layers,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -102,14 +132,12 @@ int launch_decode_window_fwd(const void* z, const void* syn,
                              const void* wslab, const void* bcat,
                              const void* wl, const void* bl, void* out,
                              int batch, int h_in, int w_in, int h_win,
-                             int w_win, int hidden, int n_layers,
+                             int w_win, int hidden, int n_layers, int bf16,
                              void* stream) {
-  return decoder_fused::launch<true>(
-      static_cast<const float*>(z), static_cast<const float*>(syn),
-      static_cast<const int*>(rows), static_cast<const int*>(cols),
-      static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(wslab), static_cast<const float*>(bcat),
-      static_cast<const float*>(wl), static_cast<const float*>(bl),
+  return decoder_fused::launch_prec<true>(
+      bf16, z, static_cast<const float*>(syn), static_cast<const int*>(rows),
+      static_cast<const int*>(cols), w0, static_cast<const float*>(b0), wslab,
+      static_cast<const float*>(bcat), wl, static_cast<const float*>(bl),
       static_cast<float*>(out), batch, h_in, w_in, h_win, w_win, 1, 1, hidden,
       n_layers, static_cast<cudaStream_t>(stream));
 }

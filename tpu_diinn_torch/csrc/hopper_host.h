@@ -10,7 +10,8 @@
 // Emulation: __syncthreads is a std::barrier over the CTA's threads; a
 // warpgroup's wgmma exchanges the A fragments through a per-warpgroup slot
 // and a 128-thread barrier, then each thread computes its accumulator
-// elements from the PTX fragment layouts with the operands cut to TF32; a
+// elements from the PTX fragment layouts with the operands cut to TF32, or
+// (bf16 wgmma) from bf16 operands with fp32 sums; a
 // TMA bulk copy is a memcpy that completes an atomic phase counter kept in
 // the mbarrier's 8 bytes; cp.async is a plain copy. Shared memory is
 // filled with NaN before each CTA, so a read of a value no thread wrote
@@ -69,6 +70,8 @@ static std::vector<Warpgroup>* g_groups;
 namespace hopper_chain {
 void host_wgmma_tf32(float* d, int n, const uint32_t (&a)[4], const float* b,
                      bool accumulate);
+void host_wgmma_bf16(float* d, int n, const uint32_t (&a)[4],
+                     const uint16_t* b, bool accumulate);
 void host_mbar_init(uint64_t* bar, int count);
 void host_mbar_wait(uint64_t* bar, uint32_t parity);
 void host_bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -108,6 +111,44 @@ void host_wgmma_tf32(float* d, int n, const uint32_t (&a)[4], const float* b,
                                                            2 * (k >= 4)]);
         const float bv =
             tf32(b[(col / 8) * 64 + (k / 4) * 32 + (col % 8) * 4 + (k & 3)]);
+        acc += av * bv;
+      }
+      out[4 * i + c] = acc;
+    }
+  g.bar->arrive_and_wait();
+  for (int i = 0; i < n / 2; ++i) d[i] = out[i];
+}
+
+static float bf16_value(uint32_t h) {
+  const uint32_t u = h << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+// As host_wgmma_tf32 for one k16 step of bf16: A's fragment holds pairs of
+// k (the lower k in the low half), B is mma_b_slabs' bf16 layout.
+void host_wgmma_bf16(float* d, int n, const uint32_t (&a)[4],
+                     const uint16_t* b, bool accumulate) {
+  Warpgroup& g = (*g_groups)[t_thread / 128];
+  const int t = t_thread % 128;
+  for (int i = 0; i < 4; ++i) g.a[t][i] = a[i];
+  g.bar->arrive_and_wait();
+  const int w = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  std::vector<float> out(n / 2);
+  for (int i = 0; i < n / 8; ++i)
+    for (int c = 0; c < 4; ++c) {
+      const int row = 16 * w + gid + 8 * (c >> 1);
+      const int col = 8 * i + 2 * tig + (c & 1);
+      const int r16 = row % 16;
+      float acc = accumulate ? d[4 * i + c] : 0.f;
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t reg =
+            g.a[(row / 16) * 32 + (r16 & 7) * 4 + ((k & 7) >> 1)]
+               [(r16 >= 8) + 2 * (k >= 8)];
+        const float av = bf16_value((k & 1) ? reg >> 16 : reg & 0xffffu);
+        const float bv = bf16_value(
+            b[(col / 8) * 128 + (k / 8) * 64 + (col % 8) * 8 + (k & 7)]);
         acc += av * bv;
       }
       out[4 * i + c] = acc;
@@ -194,6 +235,17 @@ static void dump(const std::string& path, const std::vector<float>& v) {
 
 static const float* floats(const std::vector<char>& v) {
   return reinterpret_cast<const float*>(v.data());
+}
+
+static const uint16_t* halves(const std::vector<char>& v) {
+  return reinterpret_cast<const uint16_t*>(v.data());
+}
+
+static void dump_halves(const std::string& path,
+                        const std::vector<uint16_t>& v) {
+  FILE* f = fopen(path.c_str(), "wb");
+  fwrite(v.data(), 2, v.size(), f);
+  fclose(f);
 }
 
 static const int* ints(const std::vector<char>& v) {

@@ -26,18 +26,31 @@ with the polynomial sine, reading z at its nearest-exact LR pixel.
   biases reach the decoder folded into z and take their gradient through
   it.
 
-Every product runs on the tensor cores (``wgmma`` TF32) in 3xTF32, which
-keeps fp32-level error. The wrapper splits [Wkq | Wq] into wgmma's B
-layout once per call (``forward_slabs``, and ``mma_b_slabs`` of its
-transpose for the backward); ``decode`` splits it once per training step
-and hands the forward's slabs on to the backward.
+Two precisions, chosen by z's dtype (the compute dtype; the weights come
+in it too, the biases, syn, the output and the upstream gradient are
+float32):
+
+- float32: every product runs on the tensor cores (``wgmma`` TF32) in
+  3xTF32, which keeps fp32-level error;
+- bfloat16, the JAX package's bf16 mode (``cdt = w0.dtype`` in its
+  kernels): every product takes bf16 operands and sums in fp32 (``wgmma``
+  BF16): syn and q are rounded to bf16 before each product (the head's
+  too), the backward's d, dpre_0 and g before theirs; z is widened for the
+  adds, and relu, the sine, k * sin and the bias gradients stay fp32. The
+  forward's output and the weight gradients are fp32; dz sums in fp32 and
+  is rounded to bf16 once.
+
+The wrapper lays [Wkq | Wq] out in wgmma's B layout once per call
+(``forward_slabs``, and ``mma_b_slabs`` of its transpose for the
+backward); ``decode`` does it once per training step and hands the
+forward's slabs on to the backward.
 
 Each dispatcher takes its plain PyTorch version (``*_ref``) only for a
 tensor on the CPU. For a CUDA tensor it launches the kernels of
-``csrc/decoder_fused.cu`` / ``csrc/decoder_bwd.cu`` or raises. The kernels
-are fp32 only. ``decode`` runs a forward dispatcher as one autograd node
-whose backward is the matching backward dispatcher. Each kernel launch
-adds one to ``launches[name]``.
+``csrc/decoder_fused.cu`` / ``csrc/decoder_bwd.cu`` in z's precision or
+raises. ``decode`` runs a forward dispatcher as one autograd node whose
+backward is the matching backward dispatcher. Each kernel launch adds one
+to ``launches[name]`` (``name + "_bf16"`` for a bf16 instance).
 """
 
 from __future__ import annotations
@@ -56,9 +69,13 @@ from tpu_diinn_torch.core.fastmath import _poly_sin, _poly_sincos
 KERNEL_HIDDEN = (32, 64, 256)
 MAX_INT_RATIO = 16
 PARAM_KEYS = ("w0", "b0", "wcat", "bcat", "wl", "bl")
+WEIGHT_KEYS = ("w0", "wcat", "wl")     # in the compute dtype; biases fp32
+DTYPES = (torch.float32, torch.bfloat16)
+KERNELS = ("decode_int_fwd", "decode_window_fwd", "decode_int_bwd",
+           "decode_window_bwd")
 
-launches: Dict[str, int] = {"decode_int_fwd": 0, "decode_window_fwd": 0,
-                            "decode_int_bwd": 0, "decode_window_bwd": 0}
+launches: Dict[str, int] = {f"{k}{sfx}": 0 for sfx in ("", "_bf16")
+                            for k in KERNELS}
 
 
 def reset_launches() -> None:
@@ -66,11 +83,17 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def pack_params(decoder_state: Mapping[str, torch.Tensor],
-                n_layers: int) -> dict:
+def launch_key(name: str, dtype: torch.dtype) -> str:
+    """``launches``' key of kernel ``name``'s instance for ``dtype``."""
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def pack_params(decoder_state: Mapping[str, torch.Tensor], n_layers: int,
+                dtype: torch.dtype = torch.float32) -> dict:
     """The kernels' weight layout from an ImplicitDecoder's parameters
-    (mode 3, no init_q): fp32, contiguous, (in, out) matrices, and each
-    layer's [Wkq | Wq] / [bkq | bq] concatenated.
+    (mode 3, no init_q): contiguous (in, out) matrices, and each layer's
+    [Wkq | Wq] / [bkq | bq] concatenated; the weights in ``dtype`` (the
+    compute dtype), the biases float32.
 
     w0 (3, H), b0 (H,), wcat (L-1, H, 2H), bcat (L-1, 2H), wl (H, 3),
     bl (3,). The kernels add only the q half of ``bcat``: the kq biases are
@@ -81,7 +104,7 @@ def pack_params(decoder_state: Mapping[str, torch.Tensor],
     f32 = torch.float32
 
     def w(name):
-        return p[f"{name}.dense.weight"].to(f32).t()
+        return p[f"{name}.dense.weight"].to(f32).t().to(dtype)
 
     def b(name):
         return p[f"{name}.dense.bias"].to(f32)
@@ -95,7 +118,7 @@ def pack_params(decoder_state: Mapping[str, torch.Tensor],
         bcat = torch.stack([torch.cat([b(f"kq{i}"), b(f"q{i}")])
                             for i in range(1, n_layers)])
     else:
-        wcat = torch.zeros((0, h, 2 * h), dtype=f32, device=dev)
+        wcat = torch.zeros((0, h, 2 * h), dtype=dtype, device=dev)
         bcat = torch.zeros((0, 2 * h), dtype=f32, device=dev)
     return {"w0": w0.contiguous(), "b0": b0.contiguous(),
             "wcat": wcat.contiguous(), "bcat": bcat.contiguous(),
@@ -107,46 +130,63 @@ def pack_params(decoder_state: Mapping[str, torch.Tensor],
 # Plain versions.
 # ---------------------------------------------------------------------------
 
+def _mm(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype
+        ) -> torch.Tensor:
+    """a @ b with both operands rounded to ``cdt`` and fp32 sums (JAX's
+    ``dot_general(a.astype(cdt), b, preferred_element_type=f32)``): a
+    product of two bf16 values is exact in fp32."""
+    return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+
+
 def _chain_ref(zt: torch.Tensor, syn: torch.Tensor, params: dict
                ) -> torch.Tensor:
-    """The dual-MLP chain over flat (M, L*H) features and (M, 3) syn."""
+    """The dual-MLP chain over flat (M, L*H) features and (M, 3) syn, in
+    the compute dtype of the weights (the Pallas ``_chain_fwd``): q is
+    rounded to it before each product, the rest is fp32."""
     h = params["w0"].shape[1]
     n_layers = params["wcat"].shape[0] + 1
+    cdt = params["w0"].dtype
+    zt = zt.float()
     k = torch.relu(zt[:, :h])
-    q = k * _poly_sin(torch.matmul(syn, params["w0"]) + params["b0"])
+    q = k * _poly_sin(_mm(syn, params["w0"], cdt) + params["b0"])
     for i in range(1, n_layers):
-        both = torch.matmul(q, params["wcat"][i - 1])
+        both = _mm(q, params["wcat"][i - 1], cdt)
         k = torch.relu(both[:, :h] + zt[:, i * h:(i + 1) * h])
         q = k * _poly_sin(both[:, h:] + params["bcat"][i - 1, h:])
-    return torch.matmul(q, params["wl"]) + params["bl"]
+    return _mm(q, params["wl"], cdt) + params["bl"]
 
 
 def _chain_bwd_ref(zt: torch.Tensor, syn: torch.Tensor, g: torch.Tensor,
                    params: dict) -> tuple:
     """VJP of ``_chain_ref`` for the upstream gradient ``g`` (M, 3), written
     out as the Pallas ``_chain_bwd`` computes it: recompute the chain,
-    backprop layer by layer. Returns (dzt (M, L*H), weight gradients); the
-    kq half of dbcat is zero (the kq biases are folded into z)."""
+    backprop layer by layer, every product's operands rounded to the
+    compute dtype (``mm``, ``mm_back``, ``mmT_acc`` there). Returns (dzt
+    (M, L*H) fp32, fp32 weight gradients); the kq half of dbcat is zero
+    (the kq biases are folded into z)."""
     h = params["w0"].shape[1]
     n_layers = params["wcat"].shape[0] + 1
     wcat = params["wcat"]
+    cdt = params["w0"].dtype
+    zt = zt.float()
     ks, qs, sins, coss = [], [], [], []
     z0 = zt[:, :h]
     k = torch.relu(z0)
-    s, c = _poly_sincos(torch.matmul(syn, params["w0"]) + params["b0"])
-    q = k * s
+    s, c = _poly_sincos(_mm(syn, params["w0"], cdt) + params["b0"])
+    q = (k * s).to(cdt)
     ks.append(k); qs.append(q); sins.append(s); coss.append(c)
     for i in range(1, n_layers):
-        both = torch.matmul(q, wcat[i - 1])
+        both = _mm(q, wcat[i - 1], cdt)
         k = torch.relu(both[:, :h] + zt[:, i * h:(i + 1) * h])
         s, c = _poly_sincos(both[:, h:] + params["bcat"][i - 1, h:])
-        q = k * s
+        q = (k * s).to(cdt)
         ks.append(k); qs.append(q); sins.append(s); coss.append(c)
 
-    grads = {"wl": torch.matmul(qs[-1].t(), g), "bl": g.sum(0),
-             "wcat": torch.zeros_like(wcat),
+    grads = {"wl": _mm(qs[-1].t(), g, cdt), "bl": g.sum(0),
+             "wcat": torch.zeros(wcat.shape, dtype=torch.float32,
+                                 device=wcat.device),
              "bcat": torch.zeros_like(params["bcat"])}
-    dq = torch.matmul(g, params["wl"].t())
+    dq = _mm(g, params["wl"].t(), cdt)
     dzt = [None] * n_layers
     for i in range(n_layers - 1, 0, -1):
         dkq = (dq * sins[i]) * (ks[i] > 0)
@@ -154,10 +194,10 @@ def _chain_bwd_ref(zt: torch.Tensor, syn: torch.Tensor, g: torch.Tensor,
         dzt[i] = dkq
         dboth = torch.cat([dkq, dqp], dim=1)
         grads["bcat"][i - 1, h:] = dqp.sum(0)
-        grads["wcat"][i - 1] = torch.matmul(qs[i - 1].t(), dboth)
-        dq = torch.matmul(dboth, wcat[i - 1].t())
+        grads["wcat"][i - 1] = _mm(qs[i - 1].t(), dboth, cdt)
+        dq = _mm(dboth, wcat[i - 1].t(), cdt)
     dpre0 = (dq * ks[0]) * coss[0]
-    grads["w0"] = torch.matmul(syn.t(), dpre0)
+    grads["w0"] = _mm(syn.t(), dpre0, cdt)
     grads["b0"] = dpre0.sum(0)
     dzt[0] = (dq * sins[0]) * (z0 > 0)
     return torch.cat(dzt, dim=1), grads
@@ -172,14 +212,15 @@ def _gather_ref(z, syn, rows, cols, params):
     zt = z[:, _long(rows, z.device)][:, :, _long(cols, z.device)]
     hq, wq = zt.shape[1], zt.shape[2]
     synb = syn.to(torch.float32).expand(b, hq, wq, 3)
-    out = _chain_ref(zt.reshape(-1, zt.shape[-1]).to(torch.float32),
-                     synb.reshape(-1, 3), params)
+    out = _chain_ref(zt.reshape(-1, zt.shape[-1]), synb.reshape(-1, 3),
+                     params)
     return out.reshape(b, hq, wq, 3)
 
 
 def _gather_bwd_ref(z, syn, rows, cols, params, g):
     """Backward of ``_gather_ref``: the chain's VJP per query, then
-    ``index_add_`` as the adjoint of the row/column gather."""
+    ``index_add_`` in fp32 as the adjoint of the row/column gather; dz is
+    cast to z's dtype once, at the end."""
     b, h_in, w_in, c_all = z.shape
     r, c = _long(rows, z.device), _long(cols, z.device)
     zt = z[:, r][:, :, c]
@@ -192,7 +233,7 @@ def _gather_bwd_ref(z, syn, rows, cols, params, g):
            + c[None, None, :]).reshape(-1)
     dz = torch.zeros((b * h_in * w_in, c_all), dtype=dzt.dtype,
                      device=z.device).index_add_(0, pix, dzt)
-    return dz.reshape(z.shape), grads
+    return dz.reshape(z.shape).to(z.dtype), grads
 
 
 def _int_indices(h_in, w_in, s_h, s_w):
@@ -231,13 +272,18 @@ def decode_window_bwd_ref(z: torch.Tensor, syn: torch.Tensor, rows, cols,
 
 class _Decode(torch.autograd.Function):
     """One fused decode: the forward dispatcher, and as its backward the
-    matching backward dispatcher. Saves z, syn, the packed weights and (on
-    a card) the forward's weight slabs, which the backward reads again; the
-    backward recomputes the chain, so no HR activation is kept."""
+    matching backward dispatcher. The weights arrive as their float32
+    parameters and are cast to z's dtype here, out of autograd's sight, so
+    that their gradients go back in float32, unrounded (as the Pallas VJP
+    returns them). Saves z, syn, the cast weights and (on a card) the
+    forward's weight slabs, which the backward reads again; the backward
+    recomputes the chain, so no HR activation is kept."""
 
     @staticmethod
     def forward(ctx, route, syn, z, *weights):
         ctx.route = route
+        weights = tuple(w.to(z.dtype) if k in WEIGHT_KEYS else w
+                        for k, w in zip(PARAM_KEYS, weights))
         ctx.save_for_backward(syn, z, *weights)
         p = dict(zip(PARAM_KEYS, weights))
         ctx.slabs = None if z.device.type == "cpu" else forward_slabs(
@@ -266,9 +312,10 @@ def decode(z: torch.Tensor, syn: torch.Tensor, params: dict, *,
            ratio=None, rows=None, cols=None) -> torch.Tensor:
     """Fused decode as one autograd node: integer ratio ``ratio=(s_h,
     s_w)``, or the window read through ``rows``/``cols`` (``index_vector``
-    tensors on z's device). The backward returns dz and the packed
-    weights' gradients from the backward kernels (their plain versions for
-    a CPU tensor)."""
+    tensors on z's device), in z's dtype (``params`` as ``pack_params``
+    gives them in float32). The backward returns dz (z's dtype) and the
+    packed weights' float32 gradients from the backward kernels (their
+    plain versions for a CPU tensor)."""
     route = ("int", *ratio) if ratio is not None else ("window", rows, cols)
     return _Decode.apply(route, syn, z, *(params[k] for k in PARAM_KEYS))
 
@@ -289,13 +336,13 @@ def _library(name: str = "decoder_fused") -> ctypes.CDLL:
         from tpu_diinn_torch.kernels import build
         lib = build.load(name)
         if name == "decoder_fused":
-            lib.launch_decode_int_fwd.argtypes = [_P] * 9 + [_I] * 7 + [_P]
-            lib.launch_decode_window_fwd.argtypes = ([_P] * 11 + [_I] * 7
+            lib.launch_decode_int_fwd.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+            lib.launch_decode_window_fwd.argtypes = ([_P] * 11 + [_I] * 8
                                                      + [_P])
             fns = (lib.launch_decode_int_fwd, lib.launch_decode_window_fwd)
         else:
-            lib.launch_decode_int_bwd.argtypes = [_P] * 12 + [_I] * 7 + [_P]
-            lib.launch_decode_window_bwd.argtypes = ([_P] * 14 + [_I] * 7
+            lib.launch_decode_int_bwd.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+            lib.launch_decode_window_bwd.argtypes = ([_P] * 14 + [_I] * 8
                                                      + [_P])
             lib.decoder_bwd_scratch_floats.argtypes = [_L, _I, _I]
             lib.decoder_bwd_scratch_floats.restype = _L
@@ -340,6 +387,7 @@ def _check_index(idx, z: torch.Tensor, what: str) -> None:
 def _check_common(z: torch.Tensor, syn: torch.Tensor, params: dict,
                   hw: tuple) -> tuple:
     _require(z.is_cuda, f"z must be a CUDA tensor, got {z.device}")
+    _require(z.dtype in DTYPES, f"z must be one of {DTYPES}, got {z.dtype}")
     _require(z.dim() == 4, f"z must be (B, H_in, W_in, C_all), got "
              f"{tuple(z.shape)}")
     h = params["w0"].shape[-1]
@@ -353,24 +401,25 @@ def _check_common(z: torch.Tensor, syn: torch.Tensor, params: dict,
               "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
     for name, t in [("z", z), ("syn", syn)] + [(k, params[k])
                                               for k in shapes]:
-        _check_tensor(name, t, z)
+        _check_tensor(name, t, z, z.dtype if name in WEIGHT_KEYS + ("z",)
+                      else torch.float32)
         if name in shapes:
             _require(tuple(t.shape) == shapes[name],
                      f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
     return h, n_layers
 
 
-def _check_tensor(name: str, t: torch.Tensor, z: torch.Tensor) -> None:
-    _require(t.dtype == torch.float32,
-             f"{name} must be float32 (the kernels are fp32 only), got "
-             f"{t.dtype}")
+def _check_tensor(name: str, t: torch.Tensor, z: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> None:
+    _require(t.dtype == dtype,
+             f"{name} must be {dtype} (z is {z.dtype}), got {t.dtype}")
     _require(t.device == z.device, f"{name} on {t.device}, z on {z.device}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
 def _fwd_weights(params: dict, slabs) -> list:
-    """The forward launchers' weight pointers: ``wcat`` as its split B
+    """The forward launchers' weight pointers: ``wcat`` as its wgmma B
     slabs (made here unless given)."""
     if slabs is None:
         slabs = forward_slabs(params["wcat"])
@@ -392,9 +441,11 @@ def decode_int_fwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
                    params: dict, slabs=None) -> torch.Tensor:
     """Integer-ratio decode of the full HR grid (s_h*H_in, s_w*W_in).
 
-    z (B, H_in, W_in, L*H), syn (s_h*H_in, s_w*W_in, 3) -> (B, H_out,
-    W_out, 3) float32. ``slabs``: ``forward_slabs(params["wcat"])`` where
-    the caller has them (made here otherwise).
+    z (B, H_in, W_in, L*H) float32 or bfloat16 (the weights of ``params``
+    in the same dtype, ``pack_params(..., dtype)``), syn (s_h*H_in,
+    s_w*W_in, 3) float32 -> (B, H_out, W_out, 3) float32. ``slabs``:
+    ``forward_slabs(params["wcat"])`` where the caller has them (made here
+    otherwise).
     """
     if z.device.type == "cpu":
         return decode_int_fwd_ref(z, syn, s_h, s_w, params)
@@ -408,10 +459,14 @@ def decode_int_fwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
         rc = _library().launch_decode_int_fwd(
             z.data_ptr(), syn.data_ptr(), *_fwd_weights(params, slabs),
             out.data_ptr(), b, h_in, w_in, s_h, s_w, h, n_layers,
-            _stream(z.device))
+            _bf16(z), _stream(z.device))
     _raise_on(rc, "decode_int_fwd")
-    launches["decode_int_fwd"] += 1
+    launches[launch_key("decode_int_fwd", z.dtype)] += 1
     return out
+
+
+def _bf16(z: torch.Tensor) -> int:
+    return int(z.dtype == torch.bfloat16)
 
 
 def _check_ratio(s_h: int, s_w: int) -> None:
@@ -441,9 +496,10 @@ def decode_window_fwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
         rc = _library().launch_decode_window_fwd(
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),
             cols.data_ptr(), *_fwd_weights(params, slabs), out.data_ptr(),
-            b, h_in, w_in, h_win, w_win, h, n_layers, _stream(z.device))
+            b, h_in, w_in, h_win, w_win, h, n_layers, _bf16(z),
+            _stream(z.device))
     _raise_on(rc, "decode_window_fwd")
-    launches["decode_window_fwd"] += 1
+    launches[launch_key("decode_window_fwd", z.dtype)] += 1
     return out
 
 
@@ -475,20 +531,28 @@ def chain_b_operands(wcat: torch.Tensor) -> tuple:
 
 
 def forward_slabs(wcat: torch.Tensor) -> torch.Tensor:
-    """The forward chain's split B slabs of ``wcat`` (both forward
-    kernels, and the backward's recompute)."""
+    """The forward chain's B slabs of ``wcat`` (both forward kernels, and
+    the backward's recompute), in wcat's dtype."""
     return mma_b_slabs(chain_b_operands(wcat.detach())[0])
 
 
 def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
     """B operands w (L, K, P, WG, n) (the n columns that pass p of
-    warpgroup wg reads) of the chain kernel's wgmma TF32 products, split
-    and in the layout its B descriptor reads: (L, P, K/8, WG, 2, n/8, 2, 8,
-    4). One slab (p, k8 step s, wg) holds hi then lo; within each, element
-    (k = 8s + 4h + c, column 8g + r) sits at [g, h, r, c]: 8 x 4 core
-    matrices of 128 bytes, the two k halves 128 bytes apart, n8 groups 256
-    bytes apart (K-major, no swizzle)."""
+    warpgroup wg reads) of the chain kernel's wgmma products, in the layout
+    its B descriptor reads (K-major, no swizzle: core matrices of 8 rows x
+    16 bytes, the two k halves of a k step 128 bytes apart, n8 groups 256
+    bytes apart).
+
+    float32 (TF32 products): split, (L, P, K/8, WG, 2, n/8, 2, 8, 4); one
+    slab (p, k8 step s, wg) holds hi then lo; within each, element (k = 8s
+    + 4h + c, column 8g + r) sits at [g, h, r, c]. bfloat16: (L, P, K/16,
+    WG, n/8, 2, 8, 8); in slab (p, k16 step s, wg), element (k = 16s + 8h +
+    c, column 8g + r) sits at [g, h, r, c]."""
     n_layers, k, p, wg, n = w.shape
+    if w.dtype == torch.bfloat16:
+        x = w.reshape(n_layers, k // 16, 2, 8, p, wg, n // 8, 8)
+        # (L, s, half, c, P, WG, g, r) -> (L, P, s, WG, g, half, r, c)
+        return x.permute(0, 4, 1, 5, 6, 2, 7, 3).contiguous()
     hi, lo = tf32_split(w)
     x = torch.stack([hi, lo], dim=1)
     x = x.reshape(n_layers, 2, k // 8, 2, 4, p, wg, n // 8, 8)
@@ -499,10 +563,10 @@ def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
 
 def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
                  params: dict, fwd_slabs) -> tuple:
-    """dz, the flat weight-gradient vector with its per-key views (the
-    layout of ``decoder_bwd::Plan``), the split wgmma B slabs of [Wkq | Wq]
-    (``fwd_slabs`` unless None) and of its transpose, and the scratch
-    buffer of one backward call."""
+    """dz (z's dtype), the flat fp32 weight-gradient vector with its
+    per-key views (the layout of ``decoder_bwd::Plan``), the wgmma B slabs
+    of [Wkq | Wq] (``fwd_slabs`` unless None) and of its transpose, and the
+    scratch buffer of one backward call."""
     dev = z.device
     sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
              "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
@@ -531,8 +595,9 @@ def _bwd_weights(params: dict, slabs: tuple) -> list:
 def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
                    params: dict, g: torch.Tensor, slabs=None) -> tuple:
     """VJP of ``decode_int_fwd`` for the upstream gradient ``g`` (B, H_out,
-    W_out, 3): (dz like z, {w0, b0, wcat, bcat, wl, bl} gradients).
-    ``slabs``: the forward's ``forward_slabs`` where the caller has them."""
+    W_out, 3) float32: (dz like z, {w0, b0, wcat, bcat, wl, bl} float32
+    gradients). ``slabs``: the forward's ``forward_slabs`` where the caller
+    has them."""
     if z.device.type == "cpu":
         return decode_int_bwd_ref(z, syn, s_h, s_w, params, g)
     b, h_in, w_in, _ = z.shape
@@ -547,9 +612,9 @@ def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
             z.data_ptr(), syn.data_ptr(), *_bwd_weights(params, slabs),
             g.data_ptr(), dz.data_ptr(), flat.data_ptr(),
             scratch.data_ptr(), b, h_in, w_in, s_h, s_w, h, n_layers,
-            _stream(z.device))
+            _bf16(z), _stream(z.device))
     _raise_on(rc, "decode_int_bwd", "decoder_bwd")
-    launches["decode_int_bwd"] += 1
+    launches[launch_key("decode_int_bwd", z.dtype)] += 1
     return dz, grads
 
 
@@ -573,9 +638,10 @@ def decode_window_bwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),
             cols.data_ptr(), *_bwd_weights(params, slabs),
             g.data_ptr(), dz.data_ptr(), flat.data_ptr(), scratch.data_ptr(),
-            b, h_in, w_in, h_win, w_win, h, n_layers, _stream(z.device))
+            b, h_in, w_in, h_win, w_win, h, n_layers, _bf16(z),
+            _stream(z.device))
     _raise_on(rc, "decode_window_bwd", "decoder_bwd")
-    launches["decode_window_bwd"] += 1
+    launches[launch_key("decode_window_bwd", z.dtype)] += 1
     return dz, grads
 
 

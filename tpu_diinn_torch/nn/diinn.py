@@ -24,6 +24,13 @@ reference ``batched_step``; mode 4's window-local output conv depends on
 these chunk borders).
 
 NHWC at every public method; NCHW inside for ``conv2d``.
+
+``dtype`` is the compute dtype of every conv and dense layer (flax's
+``dtype``; the parameters stay float32): with bfloat16 the stacked LR conv
+and its folded biases run in bf16, the synthesis grid is built in bf16,
+the fused decoder runs its bf16 kernels (weights cast to bf16, biases
+fp32) and its fp32 output is cast to bf16; the eager ``hr_step`` runs its
+layers in bf16.
 """
 
 from __future__ import annotations
@@ -54,10 +61,12 @@ class ImplicitDecoder(nn.Module):
                  hidden_dims: Sequence[int] = (256, 256, 256, 256),
                  mode: int = 3, init_q: bool = False, out_channels: int = 3,
                  exact_sin: bool = False, use_fused: Optional[bool] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if init_q:
-            raise NotImplementedError("init_q is not ported yet (ROADMAP)")
+            raise NotImplementedError("init_q is not ported yet (ROADMAP "
+                                      "A3)")
         if mode not in (1, 2, 3, 4):
             raise ValueError(f"DIINN mode must be 1-4, got {mode}")
         h = list(hidden_dims)
@@ -65,20 +74,21 @@ class ImplicitDecoder(nn.Module):
         self.mode = mode
         self.exact_sin = exact_sin
         self.use_fused = use_fused
-        g = generator
-        self.k0_conv = Conv(in_channels, h[0], 3, generator=g)
+        self.dtype = dtype
+        kw = dict(generator=generator, dtype=dtype)
+        self.k0_conv = Conv(in_channels, h[0], 3, **kw)
         for i in range(1, len(h)):
-            self.add_module(f"kq{i}", Dense(h[i - 1], h[i], generator=g))
+            self.add_module(f"kq{i}", Dense(h[i - 1], h[i], **kw))
             if mode != 1:
                 self.add_module(f"kx{i}", Conv(in_channels, h[i], 3,
-                                               use_bias=False, generator=g))
-        self.add_module("q0", Dense(3, h[0], generator=g))
+                                               use_bias=False, **kw))
+        self.add_module("q0", Dense(3, h[0], **kw))
         for i in range(1, len(h)):
-            self.add_module(f"q{i}", Dense(h[i - 1], h[i], generator=g))
+            self.add_module(f"q{i}", Dense(h[i - 1], h[i], **kw))
         if mode == 4:
-            self.last_conv = Conv(h[-1], out_channels, 3, generator=g)
+            self.last_conv = Conv(h[-1], out_channels, 3, **kw)
         else:
-            self.last_dense = Dense(h[-1], out_channels, generator=g)
+            self.last_dense = Dense(h[-1], out_channels, **kw)
 
     @property
     def n_layers(self) -> int:
@@ -96,16 +106,21 @@ class ImplicitDecoder(nn.Module):
           chain the kernels compute);
         - hidden in ``KERNEL_HIDDEN`` (32, 64, 256): one kernel instance
           each, its tiling sized at compile time;
-        - fp32 features (the kernels are fp32 only).
+        - features in the compute dtype, float32 or bfloat16 (the kernels'
+          two precisions).
         """
         if self.use_fused is False:
             return False
         return (self.mode == 3 and not self.exact_sin
                 and len(set(self.hidden_dims)) == 1
                 and self.hidden_dims[0] in kern.KERNEL_HIDDEN
-                and feat.dtype == torch.float32)
+                and feat.dtype == self.dtype
+                and feat.dtype in kern.DTYPES)
 
     def _fused_params(self) -> dict:
+        """The kernels' packed weights in float32 (``decode`` casts them to
+        z's dtype inside its autograd node, so that their gradients stay
+        float32)."""
         return kern.pack_params(dict(self.named_parameters()), self.n_layers)
 
     # -- LR-side precomputation -------------------------------------------
@@ -122,14 +137,22 @@ class ImplicitDecoder(nn.Module):
     def lr_features_stacked(self, feat: torch.Tensor) -> torch.Tensor:
         """The channel-stacked content features as ONE 3x3 conv with the
         kq biases folded in: k = relu(q@Wkq + (z_i + bkq_i)). Mode 3 only.
-        Returns a contiguous (B, H, W, L*hidden) tensor."""
+        Returns a contiguous (B, H, W, L*hidden) tensor in the compute
+        dtype (bf16: the conv and the bias add each round to bf16, as the
+        JAX package's)."""
         ws = [self.k0_conv.conv.weight]
         bs = [self.k0_conv.conv.bias]
         for i in range(1, self.n_layers):
             ws.append(getattr(self, f"kx{i}").conv.weight)
             bs.append(getattr(self, f"kq{i}").dense.bias)
-        y = F.conv2d(_nchw(feat), torch.cat(ws, dim=0), torch.cat(bs),
-                     padding=1)
+        if self.dtype == torch.float32:
+            y = F.conv2d(_nchw(feat), torch.cat(ws, dim=0), torch.cat(bs),
+                         padding=1)
+        else:
+            dt = self.dtype
+            y = (F.conv2d(_nchw(feat).to(dt), torch.cat(ws, dim=0).to(dt),
+                          padding=1)
+                 + torch.cat(bs).to(dt)[:, None, None])
         return _nhwc(y).contiguous()
 
     # -- HR-side per-query network ----------------------------------------
@@ -151,8 +174,7 @@ class ImplicitDecoder(nn.Module):
             q = k * self._sin(getattr(self, f"q{i}")(q))
         if self.mode == 4:
             qp = F.pad(_nchw(q), (1, 1, 1, 1), mode="reflect")
-            conv = self.last_conv.conv
-            return _nhwc(F.conv2d(qp, conv.weight, conv.bias))
+            return _nhwc(self.last_conv(qp, padding=0))
         return self.last_dense(q)
 
     def forward(self, feat: torch.Tensor, size: Tuple[int, int],
@@ -161,24 +183,28 @@ class ImplicitDecoder(nn.Module):
         h_out, w_out = size
         rows = grids.nearest_exact_indices(h_in, h_out)
         cols = grids.nearest_exact_indices(w_in, w_out)
+        # built in the features' dtype, as the JAX decoder builds it
         syn = grids.syn_input_grid((h_in, w_in), (h_out, w_out),
-                                   device=feat.device)
+                                   dtype=feat.dtype, device=feat.device)
         if self._fused_ok(feat):
             z = self.lr_features_stacked(feat)
             params = self._fused_params()
+            syn = syn.float()   # the kernels' syn is fp32
             s_h, rem_h = divmod(h_out, h_in)
             s_w, rem_w = divmod(w_out, w_in)
             if (rem_h == 0 and rem_w == 0
                     and 1 <= s_h <= kern.MAX_INT_RATIO
                     and 1 <= s_w <= kern.MAX_INT_RATIO):
-                return kern.decode(z, syn, params, ratio=(s_h, s_w))
+                return kern.decode(z, syn, params,
+                                   ratio=(s_h, s_w)).to(z.dtype)
             # index vectors uploaded once; each chunk reads a view of them
             rows_v = kern.index_vector(rows, h_in, feat.device)
             cols_v = kern.index_vector(cols, w_in, feat.device)
 
             def decode(lo, hi):
                 return kern.decode(z, syn[:, lo:hi].contiguous(), params,
-                                   rows=rows_v, cols=cols_v[lo:hi])
+                                   rows=rows_v,
+                                   cols=cols_v[lo:hi]).to(z.dtype)
         else:
             zs = self.lr_features(feat)
 
@@ -215,14 +241,16 @@ class DIINN(nn.Module):
                  encoder_spec: str = "rdn",
                  hidden_dims: Sequence[int] = (256, 256, 256, 256),
                  exact_sin: bool = False, use_fused: Optional[bool] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         from tpu_diinn_torch.nn.registry import make_encoder
-        self.encoder = make_encoder(encoder_spec, generator=generator)
+        self.encoder = make_encoder(encoder_spec, generator=generator,
+                                    dtype=dtype)
         self.decoder = ImplicitDecoder(
             in_channels=self.encoder.out_dim, hidden_dims=hidden_dims,
             mode=mode, init_q=init_q, exact_sin=exact_sin,
-            use_fused=use_fused, generator=generator)
+            use_fused=use_fused, generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:

@@ -5,7 +5,8 @@ blocks of C concat-growing 3x3 convs plus a 1x1 local fusion, a global
 fusion over the concatenated block outputs, and a residual to the first
 shallow feature. Returns the (B, H, W, G0) feature grid at input resolution
 (the DIINN use; the optional PixelShuffle head is not ported). NHWC in and
-out; NCHW inside for ``conv2d``.
+out; NCHW inside for ``conv2d``. ``dtype`` is every conv's compute dtype
+(``nn/layers.py``): with bfloat16 the features come out bf16.
 """
 
 from __future__ import annotations
@@ -29,14 +30,16 @@ class RDB(nn.Module):
     """Residual dense block on NCHW tensors."""
 
     def __init__(self, growth0: int, growth: int, n_convs: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_convs = n_convs
         for c in range(n_convs):
             self.add_module(f"conv{c}", Conv(growth0 + c * growth, growth, 3,
-                                             generator=generator))
+                                             generator=generator,
+                                             dtype=dtype))
         self.lff = Conv(growth0 + n_convs * growth, growth0, 1,
-                        generator=generator)
+                        generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
@@ -49,17 +52,19 @@ class RDB(nn.Module):
 class RDN(nn.Module):
     def __init__(self, growth0: int = 64, config: str = "B",
                  n_colors: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d, c, g = RDN_CONFIGS[config]
         self.growth0 = growth0
         self.n_blocks = d
-        self.sfe1 = Conv(n_colors, growth0, 3, generator=generator)
-        self.sfe2 = Conv(growth0, growth0, 3, generator=generator)
+        kw = dict(generator=generator, dtype=dtype)
+        self.sfe1 = Conv(n_colors, growth0, 3, **kw)
+        self.sfe2 = Conv(growth0, growth0, 3, **kw)
         for i in range(d):
-            self.add_module(f"rdb{i}", RDB(growth0, g, c, generator=generator))
-        self.gff1 = Conv(d * growth0, growth0, 1, generator=generator)
-        self.gff2 = Conv(growth0, growth0, 3, generator=generator)
+            self.add_module(f"rdb{i}", RDB(growth0, g, c, **kw))
+        self.gff1 = Conv(d * growth0, growth0, 1, **kw)
+        self.gff2 = Conv(growth0, growth0, 3, **kw)
 
     @property
     def out_dim(self) -> int:
@@ -80,6 +85,8 @@ class RDN(nn.Module):
 
 
 def make_rdn(*, growth0: int = 64, config: str = "B",
-             generator: Optional[torch.Generator] = None) -> RDN:
+             generator: Optional[torch.Generator] = None,
+             dtype: torch.dtype = torch.float32) -> RDN:
     """The feature extractor shared by the models: G0=64, config 'B'."""
-    return RDN(growth0=growth0, config=config, generator=generator)
+    return RDN(growth0=growth0, config=config, generator=generator,
+               dtype=dtype)

@@ -21,31 +21,36 @@ ENCODERS = {
 }
 
 _NOT_YET = {
-    "edsr-baseline": "ROADMAP A8 (other model families)",
-    "edsr-baseline-tiny": "ROADMAP A8 (other model families)",
-    "liif": "ROADMAP A8 (other model families)",
-    "metasr": "ROADMAP A8 (other model families)",
-    "bicubic": "ROADMAP A7 (nn/bicubic.py)",
+    "edsr-baseline": "ROADMAP A4 (other model families)",
+    "edsr-baseline-tiny": "ROADMAP A4 (other model families)",
+    "liif": "ROADMAP A4 (other model families)",
+    "metasr": "ROADMAP A4 (other model families)",
+    "bicubic": "ROADMAP A4 (other model families: nn/bicubic.py)",
 }
 
 
 def make_encoder(spec: str, *,
-                 generator: Optional[torch.Generator] = None) -> nn.Module:
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Encoder ``spec`` with its convs computing in ``dtype``."""
     if spec in _NOT_YET:
         raise NotImplementedError(f"encoder {spec!r}: {_NOT_YET[spec]}")
     cls, kwargs = ENCODERS[spec]
-    return cls(generator=generator, **kwargs)
+    return cls(generator=generator, dtype=dtype, **kwargs)
 
 
 def make_net(arch: str, *, mode: int = 3, init_q: bool = False,
              encoder_spec: str = "rdn",
              hidden_dims: Optional[Sequence[int]] = None,
              use_fused: Optional[bool] = None,
-             generator: Optional[torch.Generator] = None) -> nn.Module:
+             generator: Optional[torch.Generator] = None,
+             dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Model ``arch``; ``dtype`` is its compute dtype (float32, or
+    bfloat16: bf16 compute over float32 parameters)."""
     from tpu_diinn_torch.nn.diinn import DIINN
     if arch == "diinn":
         kw = dict(mode=mode, init_q=init_q, encoder_spec=encoder_spec,
-                  use_fused=use_fused, generator=generator)
+                  use_fused=use_fused, generator=generator, dtype=dtype)
         if hidden_dims is not None:
             kw["hidden_dims"] = tuple(hidden_dims)
         return DIINN(**kw)

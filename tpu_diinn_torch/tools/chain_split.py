@@ -40,8 +40,11 @@ from pathlib import Path
 
 _MARK = "// 4) dq = g @ Wl^T"
 _STORE = re.compile(r"store2\((sq|sk|sa)\b")
-# wg_product's text, for the product cuts
-_MMA = re.compile(r"^(\s*)wgmma_tf32<kN, (true|false)>\(t, .*\);$")
+# the precision policies' product of one k step (``Tf32::mma``,
+# ``Bf16::mma``, which only wg_product calls) and wg_product's text, for
+# the product cuts
+_MMA = re.compile(r"^(\s*)wgmma_(?:tf32|bf16)<kN, (?:kZero|false)>"
+                  r"\(d, .*\);$")
 _WAIT = """      mbar_wait(bars + slot, (phase >> slot) & 1u);
       phase ^= 1u << slot;
 """

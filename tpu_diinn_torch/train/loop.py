@@ -10,6 +10,13 @@ the learning rate keyed on the global step. Each epoch ends with a
 full-image validation (loss and div2k-protocol PSNR per scale) and the
 best/last checkpoints. Data parallelism, resuming and profiling are not
 ported yet (ROADMAP).
+
+Every entry point runs on the card (``device="cuda"``) unless the caller
+asks for the CPU, as the JAX package runs on its default device.
+``model.dtype=bfloat16`` is the JAX package's bf16 mode: the net computes
+in bf16 (``make_net(dtype=...)``), its parameters, their gradients and
+Adam's state stay float32, and the L1 loss of the bf16 prediction against
+the float32 target is float32.
 """
 
 from __future__ import annotations
@@ -33,16 +40,20 @@ from tpu_diinn_torch.train.optim import make_optimizer
 from tpu_diinn_torch.train.task import SRTask
 
 
-def build_task(cfg: Config, *, device="cpu",
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_task(cfg: Config, *, device="cuda",
                generator: Optional[torch.Generator] = None) -> SRTask:
+    """The net of ``cfg.model`` on ``device``: float32 parameters, computing
+    in ``model.dtype`` (float32 or bfloat16)."""
     m = cfg.model
-    if m.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype={m.dtype!r}: the port runs fp32 only so far "
-            f"(bf16 mode: ROADMAP)")
+    if m.dtype not in DTYPES:
+        raise ValueError(f"model.dtype={m.dtype!r}: one of {list(DTYPES)}")
     net = make_net(m.arch, mode=m.mode, init_q=m.init_q,
                    encoder_spec=m.encoder, hidden_dims=m.hidden_dims,
-                   use_fused=m.use_fused, generator=generator)
+                   use_fused=m.use_fused, generator=generator,
+                   dtype=DTYPES[m.dtype])
     return SRTask(net=net.to(device), eval_bsize=m.eval_bsize)
 
 
@@ -54,7 +65,7 @@ class TrainState:
     step: int = 0
 
 
-def init_state(cfg: Config, steps_per_epoch: int, *, device="cpu",
+def init_state(cfg: Config, steps_per_epoch: int, *, device="cuda",
                params: Optional[Dict[str, np.ndarray]] = None
                ) -> TrainState:
     """The net (initialised from ``torch.Generator().manual_seed(cfg.
@@ -172,7 +183,7 @@ class WeightedMean:
 
 @torch.no_grad()
 def validate(task: SRTask, dataset, *, max_images: Optional[int] = None,
-             device="cpu") -> Dict[str, float]:
+             device="cuda") -> Dict[str, float]:
     """Full-image validation: ``val_loss`` (per image, the mean over its
     scales) and ``val_psnr_x{s}`` (div2k protocol), averaged over
     images; the decode is chunked at ``task.eval_bsize`` queries."""
@@ -198,7 +209,7 @@ def validate(task: SRTask, dataset, *, max_images: Optional[int] = None,
 
 @torch.inference_mode()
 def test_metrics(task: SRTask, dataset, *, max_images: Optional[int] = None,
-                 device="cpu") -> Dict[str, float]:
+                 device="cuda") -> Dict[str, float]:
     """Benchmark test loop: psnr/ssim/lr_psnr per scale, averaged over
     images."""
     acc: Dict[str, WeightedMean] = {}
@@ -217,7 +228,7 @@ def test_metrics(task: SRTask, dataset, *, max_images: Optional[int] = None,
     return {k: wm.compute() for k, wm in acc.items()}
 
 
-def train(cfg: Config, *, max_steps: Optional[int] = None, device="cpu",
+def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
           log_fn=None) -> TrainState:
     """The epoch loop: ``max_epochs`` epochs (or until ``max_steps``
     global steps, which ends the epoch early), each followed by validation

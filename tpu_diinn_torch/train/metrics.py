@@ -11,7 +11,9 @@ Counterpart of ``tpu_diinn/train/metrics.py`` (NHWC tensors):
 
 The depthwise gaussian convs must run in full fp32: with TF32 the
 variance f(x^2) - mu^2 cancels badly. The CLI turns TF32 off for cuDNN
-and cuBLAS.
+and cuBLAS. A bf16 prediction (the bf16 mode) is widened to fp32 before
+every metric; LR-PSNR's resize returns the prediction's dtype, as JAX's
+``resize`` does, so its downsample is rounded to bf16 first.
 """
 
 from __future__ import annotations

@@ -4,6 +4,11 @@ Counterpart of ``tpu_diinn/train/task.py``: inputs in [0, 1] map to
 [-1, 1] before the net, the training loss is the L1 distance to the
 normalized HR target averaged over the scales of a batch, and predictions
 map back and are clamped.
+
+In the bf16 mode the net's prediction is bf16: the L1 loss against the
+fp32 target promotes to fp32 (JAX's type promotion does the same), and the
+clamped prediction stays bf16, denormalized and clamped in bf16 as JAX
+clips it; the metrics take it in fp32 (``train/metrics.py``).
 """
 
 from __future__ import annotations
