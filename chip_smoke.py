@@ -4,7 +4,8 @@
     python3 chip_smoke.py --bf16-cpu-witness PATH   # phase 5d's witness
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and a checkout of this
-repository (it reads ``results/flagship_weights.npz`` and ``data/``).
+repository (it reads ``results/{flagship,liif,metasr}_weights.npz``,
+``data/`` and the JAX-CPU oracles under ``tpu_diinn_torch/testdata/``).
 Phases, each ending in one flushed JSON line with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA versions;
@@ -96,9 +97,32 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    bf16 instance launched 5 times, no fp32 instance;
 5f. the bench: ``python -m tpu_diinn_torch.bench``'s JSON line, printed on
    a line of its own;
-6. a ``kernels`` JSON line (each row with its times at every training
+6. the other model families, fp32, each path with the launch counts set
+   to 0 before it and read after it:
+   a. the benchmark evaluation (4 sets x {3.14, 4, 8}) through the CLI's
+      ``main`` of LIIF and MetaSR on ``results/{liif,metasr}_weights.npz``
+      and of the bicubic baseline (``--bicubic_test``), all 36 metrics
+      each against the committed JAX-CPU oracle at phase 4's bounds; no
+      decoder kernel runs;
+   b. DIINN with the EDSR-baseline encoder (``BASELINE.json``
+      ``configs[0]``: mode 3, hidden 4 x 256) on ``seeded_params``
+      weights, Set5 at x2 and x3.14: both forward kernels launched, the
+      per-image summaries (mean, mean square, largest magnitude, 256
+      seeded pixels of the un-clamped prediction) within 1e-4 relative
+      plus 1e-4 of the largest magnitude of the JAX-CPU oracle's;
+   c. DIINN mode 3 with ``init_q`` (RDN-B, hidden 4 x 256, seeded
+      weights): the output summaries of a seeded batch of 4 48-px LR
+      patches at x2.5, at 6b's bounds, and one training step's loss and
+      grad norm at phase 5a's step-1 bounds; no decoder kernel runs;
+   d. LIIF and MetaSR training: three steps each from the committed
+      weights on 5a's batches at 5a's bounds, then ``cli.train``'s
+      ``main`` with ``model.arch=<family>`` for 20 steps (validation on
+      two images, the checkpoint loads back), with the step's ms (CUDA
+      events, steps 2-20) and the host's wait for the next batch;
+7. a ``kernels`` JSON line (each row with its times at every training
    shape under ``train_shapes``; the bf16 instances as rows of their own,
-   ``dtype`` bfloat16), and last the device JSON line.
+   ``dtype`` bfloat16; ``launches_by_path`` with every path above), and
+   last the device JSON line.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA it
 exits non-zero before printing any result.
@@ -125,6 +149,7 @@ from tpu_diinn_torch.cli import train as train_cli
 from tpu_diinn_torch.config.config import load_config
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import _SIN_COEFFS
+from tpu_diinn_torch.core.resize import resize_np
 from tpu_diinn_torch.data import pipeline
 from tpu_diinn_torch.kernels import build
 from tpu_diinn_torch.kernels import decoder_fused as K
@@ -132,13 +157,14 @@ from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops
 from tpu_diinn_torch.train import loop
 from tpu_diinn_torch.train.checkpoint import (load_params_npz,
+                                              seeded_params,
                                               state_dict_from_jax)
+from tpu_diinn_torch.train.task import normalize
 
 ORACLE = "tpu_diinn_torch/testdata/flagship_benchmarks_jax_cpu.json"
 TRAIN_ORACLE = "tpu_diinn_torch/testdata/flagship_train_jax_cpu.json"
 BF16_ORACLE = "tpu_diinn_torch/testdata/flagship_bf16_jax_cpu.json"
 BF16_WITNESS = "tpu_diinn_torch/testdata/flagship_bf16_port_cpu.json"
-TPU_LOG = "results/benchmarks_flagship_r5b.log"
 WEIGHTS = "results/flagship_weights.npz"
 WORK = Path("build/chip_smoke")
 SOURCES = {"decode_int_fwd": "tpu_diinn_torch/csrc/decoder_fused.cu",
@@ -161,6 +187,26 @@ PSNR_TOL, SSIM_TOL = 2e-3, 1e-4
 N_METRICS = 36             # 4 sets x 3 scales x PSNR/SSIM/LR-PSNR
 HIDDEN, LAYERS = 256, 4
 TRAIN_STEPS, FRACTIONAL_STEPS = 20, 5
+FAMILIES = ("liif", "metasr")
+FAMILY_WEIGHTS = "results/{}_weights.npz"
+FAMILY_ORACLE = "tpu_diinn_torch/testdata/{}_benchmarks_jax_cpu.json"
+TPU_LOGS = {             # JAX's metrics taken on a TPU: (log, section)
+    "flagship": ("results/benchmarks_flagship_r5b.log", ""),
+    "liif": ("results/benchmarks_liif_metasr_r5.log", "=== LIIF"),
+    "metasr": ("results/benchmarks_liif_metasr_r5.log", "=== MetaSR"),
+    "bicubic": ("results/benchmarks_bicubic_r4.log", "")}
+EDSR_ORACLE = "tpu_diinn_torch/testdata/diinn_edsr_jax_cpu.json"
+INIT_Q_ORACLE = "tpu_diinn_torch/testdata/init_q_jax_cpu.json"
+FAMILIES_TRAIN_ORACLE = "tpu_diinn_torch/testdata/families_train_jax_cpu.json"
+# BASELINE.json configs[0], "tiny DIINN": DIINN mode 3, hidden 4 x 256,
+# the EDSR-baseline 16-block encoder
+EDSR_OVERRIDES = ["model.encoder=edsr-baseline"]
+EDSR_SCALES = (2, 3.14)
+INIT_Q_OVERRIDES = ["model.init_q=true"]
+INIT_Q_SCALE, INIT_Q_BATCH, INIT_Q_HR = 2.5, 4, 120
+SEED = 0                   # seeded_params, summaries, init_q_batch
+SUMMARY_PIXELS = 256
+SUMMARY_TOL = 1e-4         # relative, and of the largest magnitude
 BF16 = torch.bfloat16
 KERNEL_TOL_BF16 = 2e-3     # bf16 forward: max abs error
 BWD_TOL_BF16 = 1e-2        # bf16 backward: max abs error / largest magnitude
@@ -767,7 +813,22 @@ def eval_slice(t) -> dict:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"benchmark run: {counts}")
-    with open(ORACLE) as f:
+    deltas = hold_metrics(results, ORACLE)
+    worst = max(deltas, key=deltas.get)
+    tpu_d = max_delta(results, tpu_log_metrics("flagship"))
+    phase("slice_eval", t, wall_seconds=round(wall, 3), launches=counts,
+          decoder_call_seconds={n: span_seconds(v)
+                                for n, v in spans.items()},
+          metrics=len(deltas), max_delta_vs_oracle=deltas[worst],
+          max_delta_at=worst, max_delta_vs_tpu_v5e_log_info_only=tpu_d)
+    return counts
+
+
+def hold_metrics(results: dict, oracle_path: str) -> dict:
+    """All 36 benchmark metrics of ``results`` against a committed JAX-CPU
+    oracle: |dPSNR|, |dLR-PSNR| <= PSNR_TOL dB, |dSSIM| <= SSIM_TOL.
+    Returns each metric's |d|."""
+    with open(oracle_path) as f:
         oracle = json.load(f)
     deltas = {}
     for set_name, metrics in oracle.items():
@@ -782,33 +843,56 @@ def eval_slice(t) -> dict:
     if len(deltas) != N_METRICS:
         raise AssertionError(f"expected {N_METRICS} metrics, compared "
                              f"{len(deltas)}")
-    worst = max(deltas, key=deltas.get)
-    with open(TPU_LOG) as f:
-        tpu = json.loads([ln for ln in f if ln.strip()][-1])
-    tpu_d = max(abs(results[s][k] - v) for s, m in tpu.items()
-                if s in results for k, v in m.items())
-    phase("slice_eval", t, wall_seconds=round(wall, 3), launches=counts,
-          decoder_call_seconds={n: span_seconds(v)
-                                for n, v in spans.items()},
-          metrics=len(deltas), max_delta_vs_oracle=deltas[worst],
-          max_delta_at=worst, max_delta_vs_tpu_v5e_log_info_only=tpu_d)
-    return counts
+    return deltas
+
+
+def max_delta(results: dict, other: dict) -> float:
+    """The largest |d| between ``results`` and another run's metrics, over
+    the sets both have."""
+    return max(abs(results[s][k] - v) for s, m in other.items()
+               if s in results for k, v in m.items())
+
+
+def first_batches(cfg, n: int) -> tuple:
+    """The first ``n`` training batches of epoch 0 of ``cfg``'s data (host
+    numpy), and the steps per epoch."""
+    train_ds, _ = loop.make_datasets(cfg)
+    it = pipeline.train_batches(
+        train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
+        repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
+    batches = [next(it) for _ in range(n)]
+    it.close()
+    return batches, (len(train_ds) * cfg.data.trainsets_repeat
+                     // cfg.data.batch_size)
+
+
+def hold_steps(got: list, want: list, what: str) -> list:
+    """Training steps against a JAX-CPU oracle, relative: step 1's loss
+    within LOSS_TOL_1 and grad norm within NORM_TOL_1, later steps both
+    within STEP_TOL. Returns the relative gaps."""
+    rel = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        r_loss = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        r_norm = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+        tol_loss, tol_norm = ((LOSS_TOL_1, NORM_TOL_1) if i == 0
+                              else (STEP_TOL, STEP_TOL))
+        if not (r_loss <= tol_loss and r_norm <= tol_norm):
+            raise AssertionError(f"{what} step {i + 1}: port {g} vs JAX {w} "
+                                 f"(relative {r_loss}, {r_norm})")
+        rel.append({"loss": r_loss, "grad_norm": r_norm})
+    if len(rel) != len(want):
+        raise AssertionError(f"{what}: {len(got)} steps, oracle {len(want)}")
+    return rel
 
 
 def train_parity(dev, t) -> dict:
     """Phase 5a: three flagship steps from the committed weights against
     the JAX-CPU oracle."""
     cfg = load_config(None, [])
-    train_ds, _ = loop.make_datasets(cfg)
-    it = pipeline.train_batches(
-        train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
-        repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
     with open(TRAIN_ORACLE) as f:
         want = json.load(f)["steps"]
-    batches = [next(it) for _ in range(len(want))]
-    it.close()
+    batches, spe = first_batches(cfg, len(want))
     flat, _ = load_params_npz(WEIGHTS)
-    spe = len(train_ds) * cfg.data.trainsets_repeat // cfg.data.batch_size
     state = loop.init_state(cfg, spe, device=dev, params=flat)
     step = loop.make_train_step(state)
     K.reset_launches()
@@ -817,16 +901,7 @@ def train_parity(dev, t) -> dict:
         m = step(loop.to_device(batch, dev))
         got.append({k: float(v) for k, v in m.items()})
     counts = dict(K.launches)
-    rel = []
-    for i, (g, w) in enumerate(zip(got, want)):
-        r_loss = abs(g["loss"] - w["loss"]) / abs(w["loss"])
-        r_norm = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
-        tol_loss, tol_norm = ((LOSS_TOL_1, NORM_TOL_1) if i == 0
-                              else (STEP_TOL, STEP_TOL))
-        if not (r_loss <= tol_loss and r_norm <= tol_norm):
-            raise AssertionError(f"step {i + 1}: port {g} vs JAX {w} "
-                                 f"(relative {r_loss}, {r_norm})")
-        rel.append({"loss": r_loss, "grad_norm": r_norm})
+    rel = hold_steps(got, want, "flagship")
     if counts["decode_int_bwd"] != 3 * len(want):
         raise AssertionError(f"decode_int_bwd launches {counts}")
     del state, step
@@ -848,7 +923,6 @@ def step1_probe(cfg, spe, dev, flat, host_batch) -> dict:
     implementations, with the count of such residuals (no update applied);
     and the port's step 1 on the CPU (plain decoder versions, no card
     library). Extra passes, after the launches were read."""
-    from tpu_diinn_torch.train.task import normalize
     cpu_state = loop.init_state(cfg, spe, device="cpu", params=flat)
     cpu = loop.make_train_step(cpu_state)(loop.to_device(host_batch, "cpu"))
     del cpu_state
@@ -896,12 +970,11 @@ def run_train_cli(args: list, tag: str):
     return state, out, records
 
 
-def train_slice(t, bf16: bool = False) -> dict:
-    """Phase 5b (5d's second half with ``bf16``: ``model.dtype=bfloat16``):
-    the flagship trainer from the seeded init, with a per-step split read
-    from CUDA events."""
-    dtype = BF16 if bf16 else torch.float32
-    extra = ["model.dtype=bfloat16"] if bf16 else []
+def timed_train_cli(args: list, tag: str) -> tuple:
+    """``run_train_cli`` with CUDA events around each step, the optimizer
+    and each decoder kernel call inside a step, and the host's wait
+    between steps (host clock). Returns (state, out, records, {"step",
+    "fwd", "bwd", "optimizer": [ms]}, [host wait s])."""
     spans = {k: [] for k in ("step", "fwd", "bwd", "optimizer")}
     host_gaps, in_step, last_exit = [], [False], [None]
 
@@ -926,7 +999,6 @@ def train_slice(t, bf16: bool = False) -> dict:
         return make_timed
 
     active = lambda: in_step[0]  # noqa: E731
-    K.reset_launches()
     with contextlib.ExitStack() as stack:
         stack.enter_context(patched(loop, "make_train_step", timed_step))
         stack.enter_context(patched(loop, "apply_update",
@@ -937,10 +1009,22 @@ def train_slice(t, bf16: bool = False) -> dict:
         for name in BWD:
             stack.enter_context(patched(K, name, span_recorder(
                 spans["bwd"], active)))
-        state, out, records = run_train_cli(
-            ["--max-steps", str(TRAIN_STEPS), "trainer.limit_val_images=2",
-             *extra], "train_bf16" if bf16 else "train")
+        state, out, records = run_train_cli(args, tag)
     torch.cuda.synchronize()
+    per = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    return state, out, records, per, host_gaps
+
+
+def train_slice(t, bf16: bool = False) -> dict:
+    """Phase 5b (5d's second half with ``bf16``: ``model.dtype=bfloat16``):
+    the flagship trainer from the seeded init, with a per-step split read
+    from CUDA events."""
+    dtype = BF16 if bf16 else torch.float32
+    extra = ["model.dtype=bfloat16"] if bf16 else []
+    K.reset_launches()
+    state, out, records, per, host_gaps = timed_train_cli(
+        ["--max-steps", str(TRAIN_STEPS), "trainer.limit_val_images=2",
+         *extra], "train_bf16" if bf16 else "train")
     counts = dict(K.launches)
     n = TRAIN_STEPS
     if (counts[K.launch_key("decode_int_bwd", dtype)] != 3 * n
@@ -959,7 +1043,6 @@ def train_slice(t, bf16: bool = False) -> dict:
         raise AssertionError(f"last.npz meta {meta}")
     # per-step split over steps 2..n (step 1 warms up cuDNN and the
     # allocator); the decoder spans are 6 per step (3 scales x fwd, bwd)
-    per = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
     steady = slice(1, None)
     step_ms = float(np.mean(per["step"][steady]))
     fwd_ms = float(np.sum(per["fwd"][3:]) / (n - 1))
@@ -1062,14 +1145,8 @@ def bf16_steps(device) -> list:
     three batches of epoch 0, on ``device`` (the CPU: the plain decoder
     versions); each step's loss and grad norm."""
     cfg = load_config(None, ["model.dtype=bfloat16"])
-    train_ds, _ = loop.make_datasets(cfg)
-    it = pipeline.train_batches(
-        train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
-        repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
-    batches = [next(it) for _ in range(3)]
-    it.close()
+    batches, spe = first_batches(cfg, 3)
     flat, _ = load_params_npz(WEIGHTS)
-    spe = len(train_ds) * cfg.data.trainsets_repeat // cfg.data.batch_size
     state = loop.init_state(cfg, spe, device=device, params=flat)
     step = loop.make_train_step(state)
     return [{k: float(v) for k, v in step(loop.to_device(b, device)).items()}
@@ -1135,16 +1212,18 @@ def train_parity_bf16(dev, t) -> dict:
     return counts
 
 
-def step_profile(dev, t) -> dict:
-    """Phase 5d, last: where a flagship bf16 training step's device time
-    goes, and how long the device idles. ``torch.profiler`` over 5 steps
-    (after 3 warm-up steps) on a seeded random batch at the training
-    configuration; each kernel is put in one group by its name. The idle
-    share is 1 - (kernel time) / (wall time), one stream, with the wall
-    time of 5 more steps timed without the profiler (whose own host cost
-    would count as idle); the profiled wall time stands beside it."""
+def step_profile(dev, t, overrides=("model.dtype=bfloat16",),
+                 label: str = "step_profile_bf16") -> dict:
+    """Phase 5d, last (and 6d's with ``model.arch=liif|metasr``): where a
+    training step's device time goes, and how long the device idles.
+    ``torch.profiler`` over 5 steps (after 3 warm-up steps) on a seeded
+    random batch at the training configuration with ``overrides``; each
+    kernel is put in one group by its name. The idle share is 1 - (kernel
+    time) / (wall time), one stream, with the wall time of 5 more steps
+    timed without the profiler (whose own host cost would count as idle);
+    the profiled wall time stands beside it."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = load_config(None, ["model.dtype=bfloat16"])
+    cfg = load_config(None, list(overrides))
     state = loop.init_state(cfg, 1000, device=dev)
     step = loop.make_train_step(state)
     rng = np.random.default_rng(0)
@@ -1167,13 +1246,27 @@ def step_profile(dev, t) -> dict:
         step(batch)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
-    groups = (("decoder kernels", ("decoder_fused::", "decoder_bwd::")),
-              ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "sm90_",
-                                       "implicit", "wgrad", "dgrad")),
-              ("optimizer", ("adam", "foreach", "multi_tensor")),
-              ("copies and casts", ("copy", "cast", "cat")),
-              ("elementwise and reductions", ("elementwise", "reduce",
-                                              "vectorized")))
+    def has(*pats):
+        return lambda key: any(pt in key for pt in pats)
+
+    # A kernel's name decides its group; the first group that matches wins.
+    # cuDNN names a convolution kernel by its direction (fprop, dgrad,
+    # wgrad) or as an implicit gemm; cuBLAS's Hopper kernels share cuDNN's
+    # "sm90_" / "xmma" prefixes but say "gemm" or "gemv" with none of those
+    # words, so only a prefixed kernel without them counts as a convolution.
+    # A convolution that cuDNN runs as a plain gemm kernel counts as a matmul.
+    is_conv = has("conv", "cudnn", "fprop", "implicit", "wgrad", "dgrad")
+    is_matmul = has("gemm", "gemv")
+    groups = (("decoder kernels", has("decoder_fused::", "decoder_bwd::")),
+              ("convolution (cuDNN)", lambda key: is_conv(key) or (
+                  has("xmma", "sm90_")(key) and not is_matmul(key))),
+              ("matmul (cuBLAS)", is_matmul),
+              ("gathers (index_select, index_add)", has("index", "gather",
+                                                        "scatter")),
+              ("optimizer", has("adam", "foreach", "multi_tensor")),
+              ("copies and casts", has("copy", "cast", "cat")),
+              ("elementwise and reductions", has("elementwise", "reduce",
+                                                 "vectorized")))
     ms = {g: 0.0 for g, _ in groups}
     ms["other"] = 0.0
     kernels = 0.0
@@ -1183,15 +1276,14 @@ def step_profile(dev, t) -> dict:
         t_ms = getattr(e, "device_time_total", 0) / n / 1e3
         kernels += t_ms
         key = e.key.lower()
-        g = next((g for g, pats in groups
-                  if any(pt in key for pt in pats)), "other")
+        g = next((g for g, match in groups if match(key)), "other")
         ms[g] += t_ms
     out = {"wall_ms_per_step": wall,
            "wall_ms_per_step_profiled": wall_profiled,
            "kernel_ms_per_step": kernels,
            "device_idle_share": (1.0 - kernels / wall) if kernels else None,
            "kernel_ms_by_group": ms}
-    phase("step_profile_bf16", t, **out)
+    phase(label, t, **out)
     return out
 
 
@@ -1201,6 +1293,201 @@ def bench_line(t) -> None:
     print(json.dumps(rec), flush=True)
     phase("bench", t, value=rec["value"], mfu_bf16=rec["mfu_bf16"],
           steps_per_s=rec["steps_per_s"])
+
+
+def eval_family(t, family: str) -> dict:
+    """Phase 6a: a family's benchmark evaluation through the benchmark
+    CLI (the committed weights of LIIF or MetaSR, or ``--bicubic_test``),
+    fp32, against its JAX-CPU oracle; no decoder kernel may run."""
+    K.reset_launches()
+    args = (["--bicubic_test"] if family == "bicubic"
+            else ["--ckpt_path", FAMILY_WEIGHTS.format(family)])
+    results = benchmarks.main(args + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(K.launches)
+    if any(counts.values()):
+        raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
+    deltas = hold_metrics(results, FAMILY_ORACLE.format(family))
+    worst = max(deltas, key=deltas.get)
+    phase(f"slice_eval_{family}", t, wall_seconds=round(wall, 3),
+          launches=counts, metrics=len(deltas),
+          max_delta_vs_oracle=deltas[worst], max_delta_at=worst,
+          max_delta_vs_tpu_v5e_log_info_only=max_delta(
+              results, tpu_log_metrics(family)))
+    return counts
+
+
+def tpu_log_metrics(family: str) -> dict:
+    """The JAX package's metrics of ``family`` taken on a TPU (a sanity
+    check, printed for information only): the last JSON line of its
+    section of the committed log."""
+    path, header = TPU_LOGS[family]
+    lines = Path(path).read_text().splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith(header))
+    rest = lines[start + 1:]
+    end = next((i for i, ln in enumerate(rest) if ln.startswith("===")),
+               len(rest))
+    return json.loads([ln for ln in rest[:end] if ln.startswith("{")][-1])
+
+
+def summarize(pred, seed: int = SEED) -> dict:
+    """What the summary oracles hold of an un-clamped prediction: its mean
+    and mean square (float64 sums), its largest magnitude, and
+    SUMMARY_PIXELS values at positions drawn from ``seed``."""
+    p = np.asarray(pred, dtype=np.float64).ravel()
+    idx = np.random.default_rng(seed).integers(0, p.size, SUMMARY_PIXELS)
+    return {"mean": float(p.mean()), "mean_sq": float(np.mean(p * p)),
+            "max_abs": float(np.abs(p).max()), "pixels": p[idx].tolist()}
+
+
+def hold_summary(got: dict, want: dict, what: str) -> float:
+    """``summarize`` readings against the oracle's: each within SUMMARY_TOL
+    relative plus SUMMARY_TOL of the oracle's largest magnitude (fp32 sums
+    in another order). Returns the largest |d| over that magnitude."""
+    keys = ("mean", "mean_sq", "max_abs")
+    g = np.array([got[k] for k in keys] + got["pixels"])
+    w = np.array([want[k] for k in keys] + want["pixels"])
+    d = np.abs(g - w)
+    if not (np.isfinite(g).all()
+            and (d <= SUMMARY_TOL * (np.abs(w) + want["max_abs"])).all()):
+        i = int(np.argmax(d - SUMMARY_TOL * np.abs(w)))
+        raise AssertionError(f"{what}: reading {i} {g[i]} vs oracle {w[i]}")
+    return float(d.max() / want["max_abs"])
+
+
+def edsr_eval_inputs():
+    """(key, LR image, HR size) of Set5 at EDSR_SCALES, in the benchmark
+    loop's order; the key is "<image index>/x<scale>"."""
+    cfg = load_config(None, EDSR_OVERRIDES)
+    cfg.data.test_scales = list(EDSR_SCALES)
+    cfg.data.testsets = [("benchmark", "Set5")]
+    dset = loop.make_test_datasets(cfg)["Set5"]
+    for i, batch in pipeline.eval_batches(dset):
+        for s, (lr, hr, _name) in batch.items():
+            yield f"{i}/x{s:g}", lr, (hr.shape[1], hr.shape[2])
+
+
+def eval_diinn_edsr(dev, t) -> dict:
+    """Phase 6b: DIINN with the EDSR-baseline encoder (mode 3, hidden
+    4 x 256) on ``seeded_params`` weights, Set5 at x2 (``decode_int_fwd``)
+    and x3.14 (``decode_window_fwd``, column chunks of eval_bsize),
+    against the JAX-CPU oracle's per-image summaries."""
+    with open(EDSR_ORACLE) as f:
+        want = json.load(f)["images"]
+    task = loop.build_task(load_config(None, EDSR_OVERRIDES), device=dev)
+    task.net.load_state_dict(state_dict_from_jax(
+        seeded_params(task.net, SEED)), strict=True)
+    K.reset_launches()
+    got = {}
+    with torch.inference_mode():
+        for key, lr, size in edsr_eval_inputs():
+            pred = task.net(normalize(torch.from_numpy(lr).to(dev)), size,
+                            task.eval_bsize)
+            got[key] = summarize(pred.cpu().numpy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(K.launches)
+    for name in FWD:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched: {counts}")
+    if set(got) != set(want):
+        raise AssertionError(f"images {sorted(got)} vs {sorted(want)}")
+    rel = {k: hold_summary(got[k], want[k], f"diinn+edsr {k}")
+           for k in want}
+    worst = max(rel, key=rel.get)
+    phase("slice_eval_diinn_edsr", t, wall_seconds=round(wall, 3),
+          launches=counts, images=len(rel), max_rel_delta=rel[worst],
+          max_rel_delta_at=worst)
+    return counts
+
+
+def init_q_batch(seed: int = SEED) -> dict:
+    """A seeded batch {2.5: (lr, hr)}: INIT_Q_BATCH HR patches of uniform
+    noise, INIT_Q_HR px, and their antialiased bicubic 48-px LR."""
+    rng = np.random.default_rng(seed)
+    hr = rng.uniform(0, 1, (INIT_Q_BATCH, INIT_Q_HR, INIT_Q_HR, 3)).astype(
+        np.float32)
+    lr = np.clip(resize_np(hr, (48, 48)), 0.0, 1.0).astype(np.float32)
+    return {INIT_Q_SCALE: (lr, hr)}
+
+
+def init_q_step(dev, t) -> dict:
+    """Phase 6c: DIINN mode 3 with ``init_q`` (RDN-B, hidden 4 x 256) on
+    ``seeded_params`` weights: the un-clamped output of ``init_q_batch``
+    and one training step (loss, grad norm) against the JAX-CPU oracle, at
+    phase 5a's step-1 bounds. init_q runs no decoder kernel."""
+    with open(INIT_Q_ORACLE) as f:
+        want = json.load(f)
+    cfg = load_config(None, INIT_Q_OVERRIDES)
+    flat = seeded_params(make_net("diinn", init_q=True), SEED)
+    state = loop.init_state(cfg, 1000, device=dev, params=flat)
+    batch = loop.to_device(init_q_batch(), dev)
+    (lr, hr), = batch.values()
+    K.reset_launches()
+    with torch.no_grad():
+        pred = state.task.net(normalize(lr), (hr.shape[1], hr.shape[2]))
+    out = summarize(pred.cpu().numpy())
+    got = {k: float(v) for k, v in loop.make_train_step(state)(batch).items()}
+    counts = dict(K.launches)
+    if any(counts.values()):
+        raise AssertionError(f"init_q: a decoder kernel ran: {counts}")
+    rel = hold_steps([got], [want["step"]], "init_q")
+    phase("slice_init_q", t, step=got, oracle=want["step"], relative=rel[0],
+          output_max_rel_delta=hold_summary(out, want["output"],
+                                            "init_q output"),
+          launches=counts)
+    return counts
+
+
+def train_families(dev, t) -> dict:
+    """Phase 6d: for LIIF and MetaSR, three ``make_train_step`` steps from
+    the committed weights on the flagship's first three batches against
+    the JAX-CPU oracle (phase 5a's bounds); then ``cli.train``'s ``main``
+    with ``model.arch=<family>`` from the seeded init for TRAIN_STEPS
+    steps, validation on two images and the checkpoint, with the step's
+    CUDA-event ms (steps 2-20) and the host's wait for the next batch."""
+    with open(FAMILIES_TRAIN_ORACLE) as f:
+        oracle = json.load(f)
+    K.reset_launches()
+    out = {}
+    for fam in FAMILIES:
+        cfg = load_config(None, [f"model.arch={fam}"])
+        want = oracle[fam]["steps"]
+        batches, spe = first_batches(cfg, len(want))
+        flat, _ = load_params_npz(FAMILY_WEIGHTS.format(fam))
+        state = loop.init_state(cfg, spe, device=dev, params=flat)
+        step = loop.make_train_step(state)
+        got = [{k: float(v) for k, v in
+                step(loop.to_device(b, dev)).items()} for b in batches]
+        rel = hold_steps(got, want, fam)
+        del state, step
+        t_cli = time.perf_counter()
+        state, ckpt, records, per, host_gaps = timed_train_cli(
+            ["--max-steps", str(TRAIN_STEPS), f"model.arch={fam}",
+             "trainer.limit_val_images=2"], f"train_{fam}")
+        val = records[-1]
+        if not (state.step == TRAIN_STEPS
+                and math.isfinite(val["train_loss"])
+                and math.isfinite(val["val_loss"])):
+            raise AssertionError(f"{fam} training record {val}")
+        flat, meta = load_params_npz(str(ckpt / "last.npz"))
+        make_net(fam).load_state_dict(state_dict_from_jax(flat), strict=True)
+        out[fam] = {"steps": got, "oracle": want, "relative": rel,
+                    "cli_seconds": round(time.perf_counter() - t_cli, 3),
+                    "train_loss": val["train_loss"],
+                    "val_loss": val["val_loss"],
+                    "step_ms": float(np.mean(per["step"][1:])),
+                    "host_wait_for_batch_ms":
+                        float(np.mean(host_gaps[1:])) * 1e3,
+                    "step_ms_all": per["step"]}
+        del state
+        torch.cuda.empty_cache()
+    counts = dict(K.launches)
+    if any(counts.values()):
+        raise AssertionError(f"LIIF/MetaSR: a decoder kernel ran: {counts}")
+    phase("slice_train_families", t, launches=counts, **out)
+    return counts
 
 
 def main(argv: list) -> int:
@@ -1282,8 +1569,17 @@ def main(argv: list) -> int:
                                                         bf16=True)
     step_profile(dev, time.perf_counter())
     bench_line(time.perf_counter())
+    torch.cuda.empty_cache()
+    for fam in ("liif", "metasr", "bicubic"):
+        by_path[f"eval_{fam}"] = eval_family(time.perf_counter(), fam)
+    by_path["eval_diinn_edsr"] = eval_diinn_edsr(dev, time.perf_counter())
+    by_path["init_q"] = init_q_step(dev, time.perf_counter())
+    by_path["train_families"] = train_families(dev, time.perf_counter())
+    for fam in FAMILIES:
+        step_profile(dev, time.perf_counter(), [f"model.arch={fam}"],
+                     f"step_profile_{fam}")
 
-    # 6) kernels line, then the device line
+    # 7) kernels line, then the device line
     kernels = []
     for key in K.launches:
         name = key.removesuffix("_bf16")

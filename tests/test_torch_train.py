@@ -137,11 +137,11 @@ def test_train_steps_match_jax(use_fused, scales):
                                    err_msg=k)
 
 
-def flagship_oracle(n_steps=3, overrides=()):
+def flagship_oracle(n_steps=3, overrides=(), weights=FLAGSHIP):
     """The flagship JAX oracle of ``chip_smoke.py`` phase 5a: ``n_steps``
     steps at the default (flagship) configuration (with ``overrides``) from
-    ``results/flagship_weights.npz`` on the first batches of epoch 0
-    (seed 123) of DIV2K[0:160), on the JAX numpy data path."""
+    ``weights`` (``results/flagship_weights.npz``) on the first batches of
+    epoch 0 (seed 123) of DIV2K[0:160), on the JAX numpy data path."""
     cfg = jload_config(None, list(overrides))
     d = cfg.data
     full = jds.SRDatasetDownsample(root=str(REPO / "data"), name="DIV2K",
@@ -154,10 +154,11 @@ def flagship_oracle(n_steps=3, overrides=()):
                              seed=cfg.seed, repeat=d.trainsets_repeat,
                              num_workers=4)
     batches = [next(it) for _ in range(n_steps)]
-    state, _ = jload_npz(str(FLAGSHIP))
+    state, _ = jload_npz(str(weights))
     _, metrics, _ = jax_train_oracle(list(overrides), batches, n_steps,
                                      params=_flatten(state["params"]))
-    return {"weights": "results/flagship_weights.npz", "seed": cfg.seed,
+    return {"weights": str(Path(weights).relative_to(REPO)),
+            "seed": cfg.seed,
             "batches": f"first {n_steps} of epoch 0, DIV2K[0:{len(train)})",
             "steps": metrics}
 

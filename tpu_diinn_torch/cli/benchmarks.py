@@ -3,12 +3,16 @@
     python -m tpu_diinn_torch.cli.benchmarks --ckpt_path results/flagship_weights.npz \
         [--scales 3.14 4 8] [--testsets B100 Set5 Set14 Urban100] \
         [--max_images N] [--device cuda|cpu] [key=value ...]
+    python -m tpu_diinn_torch.cli.benchmarks --bicubic_test [...]
 
 Counterpart of ``tpu_diinn/cli/benchmarks.py``: PSNR/SSIM/LR-PSNR per scale
 on the benchmark sets, printed as one JSON object per set and, last, one
-line of JSON with every set's metrics. ``key=value`` overrides win over
-the checkpoint's embedded config (e.g. ``model.use_fused=false`` runs the
-eager decoder instead of the CUDA kernels).
+line of JSON with every set's metrics. The checkpoint's embedded config
+picks the model (``model.arch``: DIINN, LIIF or MetaSR); ``key=value``
+overrides win over it (e.g. ``model.use_fused=false`` runs the eager
+decoder instead of the CUDA kernels). ``--bicubic_test`` evaluates the
+bicubic baseline (the default config with ``model.arch=bicubic``, no
+weights).
 
 Runs on the card by default. ``--device cuda`` on a host without CUDA
 raises; it does not fall back to the CPU. TF32 is turned off for cuBLAS
@@ -47,8 +51,10 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--ckpt_path", type=str, required=True,
+    p.add_argument("--ckpt_path", type=str, default=None,
                    help="compact .npz weights export")
+    p.add_argument("--bicubic_test", action="store_true",
+                   help="evaluate the bicubic baseline (no weights)")
     p.add_argument("--root", type=str, default="./data/")
     p.add_argument("--scales", type=float, nargs="+", default=[3.14, 4, 8])
     p.add_argument("--testsets", type=str, nargs="+",
@@ -56,16 +62,22 @@ def main(argv=None):
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda")
     args, overrides = p.parse_known_args(argv)
+    if args.bicubic_test == (args.ckpt_path is not None):
+        p.error("give one of --ckpt_path and --bicubic_test")
     device = resolve_device(args.device)
 
-    flat, meta = load_params_npz(args.ckpt_path)
-    # checkpoint config first, THEN command-line overrides
-    cfg = load_config(meta["config"])
-    for ov in overrides:
-        key, _, val = ov.lstrip("-").partition("=")
-        _set_dotted(cfg, key, val)
-    task = loop.build_task(cfg, device=device)
-    task.net.load_state_dict(state_dict_from_jax(flat), strict=True)
+    if args.bicubic_test:
+        cfg = load_config(None, ["model.arch=bicubic"] + overrides)
+        task = loop.build_task(cfg, device=device)
+    else:
+        flat, meta = load_params_npz(args.ckpt_path)
+        # checkpoint config first, THEN command-line overrides
+        cfg = load_config(meta["config"])
+        for ov in overrides:
+            key, _, val = ov.lstrip("-").partition("=")
+            _set_dotted(cfg, key, val)
+        task = loop.build_task(cfg, device=device)
+        task.net.load_state_dict(state_dict_from_jax(flat), strict=True)
 
     cfg.data.root = args.root
     cfg.data.test_scales = list(args.scales)

@@ -19,7 +19,7 @@ from typing import Any, List, Optional, Tuple
 
 @dataclass
 class ModelConfig:
-    arch: str = "diinn"             # diinn (other families: ROADMAP)
+    arch: str = "diinn"             # diinn | liif | metasr | bicubic
     mode: int = 3                   # DIINN interaction mode
     init_q: bool = False
     encoder: str = "rdn"            # encoder spec (nn/registry.py)

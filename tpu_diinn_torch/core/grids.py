@@ -92,3 +92,21 @@ def syn_input_grid(in_size: tuple[int, int], out_size: tuple[int, int],
     ratio = _scalar(area_ratio(in_size, out_size), dtype,
                     rel.device).expand(rel.shape[:2] + (1,))
     return torch.cat([rel, ratio], dim=-1)
+
+
+def cell_grid(out_size: tuple[int, int], *, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """(2,) cell size (2/H_out, 2/W_out) used by LIIF and MetaSR."""
+    return torch.tensor([2.0 / out_size[0], 2.0 / out_size[1]],
+                        dtype=dtype, device=device)
+
+
+def nearest_grid_sample_indices(n_in: int, coords: np.ndarray) -> np.ndarray:
+    """torch ``grid_sample(mode='nearest', align_corners=False)`` index map
+    over float64 numpy ``coords`` in [-1, 1]: un-normalize to
+    ``(c + 1) * n_in/2 - 0.5``, round half up as ``floor(x + 0.5)``, clamp.
+    Kept in float64 numpy: in float32 the ties of integer scales round to
+    the other side and shift whole rows or columns."""
+    x = (coords + 1.0) * (n_in / 2.0) - 0.5
+    idx = np.floor(x + 0.5)
+    return np.clip(idx, 0, n_in - 1).astype(np.int32)

@@ -1,7 +1,7 @@
 """DIINN: dual-interactive implicit decoder over an RDN feature grid.
 
 Counterpart of ``tpu_diinn/nn/diinn.py`` (``ImplicitDecoder`` and
-``DIINN``, without ``init_q``). The decoder is the factorized form: every
+``DIINN``). The decoder is the factorized form: every
 content layer's 1x1 conv over ``unfold(x, 3)`` is a 3x3 conv over ``x`` at
 LR resolution, gathered to HR by nearest-exact indices, so per query the
 chain is
@@ -12,6 +12,17 @@ chain is
 
 with K_i = relu(kq_i(k)) (mode 1), relu(kq_i(k) + z_i) (mode 2) or
 relu(kq_i(q) + z_i) (modes 3, 4).
+
+``init_q`` modulates the unfolded features per query before layer 0,
+which breaks the LR factorization: the C*9 unfolded channels are gathered
+at HR (once per decode window) and the chain is
+
+    s = sin(first(syn));  x = s * u;  k = relu(k0_dense(x));
+    q = k * sin(q0(s))
+    K_i = relu(kq_i(k or q) + kx_i(x))          (kx_i: Dense, no bias)
+
+always on the eager route (the fused kernels compute the chain without
+it, as the JAX package's Pallas kernels do).
 
 Routing mirrors the JAX ``__call__`` and is decided once per ``forward``.
 ``_fused_ok`` (configuration only) picks the fused decoder
@@ -45,7 +56,7 @@ from torch import nn
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import fast_sin
 from tpu_diinn_torch.kernels import decoder_fused as kern
-from tpu_diinn_torch.nn.layers import Conv, Dense
+from tpu_diinn_torch.nn.layers import Conv, Dense, unfold3x3
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -64,25 +75,30 @@ class ImplicitDecoder(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if init_q:
-            raise NotImplementedError("init_q is not ported yet (ROADMAP "
-                                      "A3)")
         if mode not in (1, 2, 3, 4):
             raise ValueError(f"DIINN mode must be 1-4, got {mode}")
         h = list(hidden_dims)
+        c9 = in_channels * 9
         self.hidden_dims = tuple(h)
         self.mode = mode
+        self.init_q = init_q
         self.exact_sin = exact_sin
         self.use_fused = use_fused
         self.dtype = dtype
         kw = dict(generator=generator, dtype=dtype)
-        self.k0_conv = Conv(in_channels, h[0], 3, **kw)
+        if init_q:
+            self.first = Dense(3, c9, **kw)
+            self.k0_dense = Dense(c9, h[0], **kw)
+        else:
+            self.k0_conv = Conv(in_channels, h[0], 3, **kw)
         for i in range(1, len(h)):
             self.add_module(f"kq{i}", Dense(h[i - 1], h[i], **kw))
             if mode != 1:
-                self.add_module(f"kx{i}", Conv(in_channels, h[i], 3,
-                                               use_bias=False, **kw))
-        self.add_module("q0", Dense(3, h[0], **kw))
+                self.add_module(f"kx{i}", Dense(c9, h[i], use_bias=False,
+                                                **kw) if init_q else
+                                Conv(in_channels, h[i], 3, use_bias=False,
+                                     **kw))
+        self.add_module("q0", Dense(c9 if init_q else 3, h[0], **kw))
         for i in range(1, len(h)):
             self.add_module(f"q{i}", Dense(h[i - 1], h[i], **kw))
         if mode == 4:
@@ -102,8 +118,8 @@ class ImplicitDecoder(nn.Module):
         """Whether the fused decoder (CUDA kernels / their plain versions)
         takes this decode. Configuration only, no size gate:
 
-        - mode 3 with the polynomial sine and uniform hidden widths (the
-          chain the kernels compute);
+        - mode 3 without ``init_q``, with the polynomial sine and uniform
+          hidden widths (the chain the kernels compute);
         - hidden in ``KERNEL_HIDDEN`` (32, 64, 256): one kernel instance
           each, its tiling sized at compile time;
         - features in the compute dtype, float32 or bfloat16 (the kernels'
@@ -111,7 +127,7 @@ class ImplicitDecoder(nn.Module):
         """
         if self.use_fused is False:
             return False
-        return (self.mode == 3 and not self.exact_sin
+        return (self.mode == 3 and not self.init_q and not self.exact_sin
                 and len(set(self.hidden_dims)) == 1
                 and self.hidden_dims[0] in kern.KERNEL_HIDDEN
                 and feat.dtype == self.dtype
@@ -126,7 +142,10 @@ class ImplicitDecoder(nn.Module):
     # -- LR-side precomputation -------------------------------------------
     def lr_features(self, feat: torch.Tensor
                     ) -> Tuple[Optional[torch.Tensor], ...]:
-        """All content-branch 3x3 convs at LR resolution, each NHWC."""
+        """All content-branch 3x3 convs at LR resolution, each NHWC; with
+        ``init_q``, the unfolded features alone."""
+        if self.init_q:
+            return (unfold3x3(feat),)
         x = _nchw(feat)
         zs = [_nhwc(self.k0_conv(x))]
         for i in range(1, self.n_layers):
@@ -172,6 +191,30 @@ class ImplicitDecoder(nn.Module):
             else:  # modes 3, 4
                 k = torch.relu(kq(q) + zi)
             q = k * self._sin(getattr(self, f"q{i}")(q))
+        return self._head(q)
+
+    def hr_step_init_q(self, u_hr: torch.Tensor,
+                       syn: torch.Tensor) -> torch.Tensor:
+        """The ``init_q`` chain over gathered unfolded features ``u_hr``
+        (B, h, w, C*9) and the synthesis input ``syn`` (B, h, w, 3)."""
+        s = self._sin(self.first(syn))
+        x = s * u_hr
+        k = torch.relu(self.k0_dense(x))
+        q = k * self._sin(self.q0(s))
+        for i in range(1, self.n_layers):
+            kq = getattr(self, f"kq{i}")
+            if self.mode == 1:
+                k = torch.relu(kq(k))
+            elif self.mode == 2:
+                k = torch.relu(kq(k) + getattr(self, f"kx{i}")(x))
+            else:  # modes 3, 4
+                k = torch.relu(kq(q) + getattr(self, f"kx{i}")(x))
+            q = k * self._sin(getattr(self, f"q{i}")(q))
+        return self._head(q)
+
+    def _head(self, q: torch.Tensor) -> torch.Tensor:
+        """The output layer: a dense layer, or in mode 4 a 3x3 conv over
+        the reflect-padded window."""
         if self.mode == 4:
             qp = F.pad(_nchw(q), (1, 1, 1, 1), mode="reflect")
             return _nhwc(self.last_conv(qp, padding=0))
@@ -230,6 +273,8 @@ class ImplicitDecoder(nn.Module):
         c = torch.as_tensor(cols, dtype=torch.long, device=dev)
         gath = tuple(None if z is None else z[:, r][:, :, c] for z in zs)
         synb = syn[None].expand(zs[0].shape[0], *syn.shape)
+        if self.init_q:
+            return self.hr_step_init_q(gath[0], synb)
         return self.hr_step(gath, synb)
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``tpu_diinn/nn/layers.py``: a same-padded ``Conv`` and a
 per-pixel ``Dense``, both with the torch-default init (kaiming_uniform with
 a=sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias),
-and ``pixel_shuffle``. Each wraps its torch layer as a child named ``conv``
-/ ``dense``, so that state-dict keys mirror the JAX parameter paths
+``pixel_shuffle``, EDSR's ``MeanShift``, ``ResBlock`` and ``Upsampler``,
+and ``unfold3x3`` (``tpu_diinn/nn/diinn.py``). ``Conv`` and ``Dense`` wrap
+their torch layer as a child named ``conv`` / ``dense``, so that state-dict
+keys mirror the JAX parameter paths
 (``sfe1/conv/kernel`` -> ``sfe1.conv.weight``).
 
 ``Conv`` works on NCHW tensors: the models convert NHWC -> NCHW once at
@@ -71,10 +73,11 @@ class Dense(nn.Module):
     """Per-pixel linear layer over the last axis."""
 
     def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(in_features, features)
+        self.dense = nn.Linear(in_features, features, bias=use_bias)
         self.dtype = dtype
         _torch_default_init_(self.dense.weight, self.dense.bias,
                              in_features, generator)
@@ -83,8 +86,8 @@ class Dense(nn.Module):
         if self.dtype == torch.float32:
             return self.dense(x)
         d = self.dense
-        return (F.linear(x.to(self.dtype), d.weight.to(self.dtype))
-                + d.bias.to(self.dtype))
+        y = F.linear(x.to(self.dtype), d.weight.to(self.dtype))
+        return y if d.bias is None else y + d.bias.to(self.dtype)
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -96,3 +99,78 @@ def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
     x = x.reshape(b, h, w, c_out, r, r)
     x = x.permute(0, 1, 4, 2, 5, 3)
     return x.reshape(b, h * r, w * r, c_out)
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H, W, C*9) zero-padded 3x3 neighbourhoods, in
+    torch ``F.unfold(x, 3, padding=1)``'s channel order c*9 + kh*3 + kw."""
+    b, h, w, c = x.shape
+    p = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = [p[:, kh:kh + h, kw:kw + w, :] for kh in range(3)
+            for kw in range(3)]
+    return torch.stack(taps, dim=-1).reshape(b, h, w, c * 9)
+
+
+# DIV2K RGB mean used by EDSR's MeanShift
+DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
+class MeanShift(nn.Module):
+    """Frozen shift by the DIV2K RGB mean on NCHW tensors; ``sign=-1``
+    subtracts. The JAX module's std is 1 wherever the repo builds it, so
+    the port has no std. No parameters and no buffers (the flax module has
+    none). The JAX module also zeroes what lies beyond an image's true
+    extent under bucketed eval; the port has no bucketed eval, so that mask
+    is left out."""
+
+    def __init__(self, rgb_range: float = 1.0, sign: int = -1):
+        super().__init__()
+        self.rgb_range = rgb_range
+        self.sign = sign
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = torch.tensor(DIV2K_RGB_MEAN, dtype=torch.float64).to(
+            x.device, x.dtype)[:, None, None]
+        return x + self.sign * self.rgb_range * mean
+
+
+class ResBlock(nn.Module):
+    """conv-relu-conv residual block on NCHW tensors (EDSR-baseline's
+    res_scale of 1, the only one the repo builds)."""
+
+    def __init__(self, n_feats: int, kernel_size: int = 3,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, dtype=dtype)
+        self.conv0 = Conv(n_feats, n_feats, kernel_size, **kw)
+        self.conv1 = Conv(n_feats, n_feats, kernel_size, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(torch.relu(self.conv0(x)))
+        return x + y
+
+
+class Upsampler(nn.Module):
+    """PixelShuffle x2^n / x3 upsampling tail on NCHW tensors (torch's
+    ``pixel_shuffle`` has the (C, r, r) channel order of the JAX one)."""
+
+    def __init__(self, scale: int, n_feats: int,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, dtype=dtype)
+        if scale & (scale - 1) == 0:          # a power of two
+            self.steps = [2] * int(math.log2(scale))
+        elif scale == 3:
+            self.steps = [3]
+        else:
+            raise NotImplementedError(f"Upsampler scale {scale}")
+        for i, r in enumerate(self.steps):
+            self.add_module(f"conv{i}", Conv(n_feats, r * r * n_feats, 3,
+                                             **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, r in enumerate(self.steps):
+            x = F.pixel_shuffle(getattr(self, f"conv{i}")(x), r)
+        return x

@@ -1,0 +1,127 @@
+"""LIIF: the local implicit image function baseline.
+
+Counterpart of ``tpu_diinn/nn/liif.py``: a four-corner local ensemble of
+nearest feature lookups, 3x3 feature unfolding, cell decoding and an MLP
+image function, blended with the diagonal area swap.
+
+The imnet's first layer over the 576 unfolded channels is a 3x3 conv over
+the feature grid (``imnet_feat``), run once at LR and gathered per corner;
+its relative-coordinate part (``imnet_rel``, with layer 0's bias) and cell
+part (``imnet_cell``, no bias) are small per-query dense layers. The
+per-query products stay ``torch.matmul`` (the JAX package runs them as XLA
+dense ops, outside any Pallas kernel).
+
+The corner index maps are float64 numpy functions of the two sizes, cast
+to float32 only at the end: in float32 the ties of integer scales round to
+the other side and shift whole rows or columns. NHWC at every method.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpu_diinn_torch.core import grids
+from tpu_diinn_torch.nn.layers import Conv, Dense
+
+_EPS_SHIFT = 1e-6
+_CLAMP = 1.0 - 1e-6
+
+
+def _corner_axis_indices(n_in: int, n_out: int,
+                         v: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Nearest-lookup indices and rel-coords (scaled by ``n_in``) of one
+    axis for corner offset ``v``: the query coordinate shifted by
+    ``v / n_in + 1e-6``, clamped to +-(1 - 1e-6)."""
+    coords = -1.0 + 1.0 / n_out + (2.0 / n_out) * np.arange(n_out)
+    r = 1.0 / n_in
+    shifted = coords + (v * r + _EPS_SHIFT)
+    shifted = np.clip(shifted, -_CLAMP, _CLAMP)
+    idx = grids.nearest_grid_sample_indices(n_in, shifted)
+    in_coords = -1.0 + 1.0 / n_in + (2.0 / n_in) * np.arange(n_in)
+    rel = (coords - in_coords[idx]) * n_in
+    return idx, rel.astype(np.float32)
+
+
+# the four corner offsets, in the order the blend sums them
+_CORNERS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
+
+
+class LIIF(nn.Module):
+    """LIIF with the reference's settings fixed: local ensemble, 3x3 feature
+    unfolding and cell decoding all on (the JAX module's options default to
+    these, and every configuration and checkpoint of the repo uses them)."""
+
+    def __init__(self, encoder_spec: str = "rdn",
+                 hidden: Sequence[int] = (256, 256, 256, 256),
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from tpu_diinn_torch.nn.registry import make_encoder
+        self.n_hidden = len(hidden)
+        kw = dict(generator=generator, dtype=dtype)
+        self.encoder = make_encoder(encoder_spec, **kw)
+        c = self.encoder.out_dim
+        self.imnet_feat = Conv(c, hidden[0], 3, use_bias=False, **kw)
+        self.imnet_rel = Dense(2, hidden[0], **kw)
+        self.imnet_cell = Dense(2, hidden[0], use_bias=False, **kw)
+        dims = [*hidden, 3]
+        for i in range(1, len(dims)):
+            self.add_module(f"imnet_fc{i}", Dense(dims[i - 1], dims[i], **kw))
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def decode(self, feat: torch.Tensor, size: Tuple[int, int],
+               bsize: Optional[int] = None) -> torch.Tensor:
+        """Implicit decode of an LR feature grid to ``size``, in serial
+        column chunks of ``bsize // H_out`` queries when ``bsize`` is
+        set."""
+        b, h_in, w_in, _ = feat.shape
+        h_out, w_out = size
+        dev = feat.device
+        z = self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        cell = torch.from_numpy(np.asarray(
+            [2.0 * h_in / h_out, 2.0 * w_in / w_out], np.float32)).to(dev)
+        maps = []
+        for vy, vx in _CORNERS:
+            iy, ry = _corner_axis_indices(h_in, h_out, vy)
+            ix, rx = _corner_axis_indices(w_in, w_out, vx)
+            maps.append(tuple(torch.from_numpy(a).to(dev)
+                              for a in (iy.astype(np.int64), ry,
+                                        ix.astype(np.int64), rx)))
+        chunk = w_out if bsize is None else max(1, bsize // h_out)
+        outs = [self._blend(z, [(iy, ry, ix[lo:lo + chunk],
+                                 rx[lo:lo + chunk])
+                                for iy, ry, ix, rx in maps], cell)
+                for lo in range(0, w_out, chunk)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+    def _blend(self, z: torch.Tensor, per_corner: List[tuple],
+               cell: torch.Tensor) -> torch.Tensor:
+        """Corner predictions and the area-weighted blend over per-corner
+        (row index, row rel, column index, column rel) vectors."""
+        b = z.shape[0]
+        preds, areas = [], []
+        for iy, ry, ix, rx in per_corner:
+            q = z.index_select(1, iy).index_select(2, ix)
+            h_c, w_c = q.shape[1], q.shape[2]
+            rel = torch.stack([ry[:, None].expand(h_c, w_c),
+                               rx[None, :].expand(h_c, w_c)], dim=-1)
+            rel = rel[None].expand(b, h_c, w_c, 2).to(q.dtype)
+            y = torch.relu(q + self.imnet_rel(rel) + self.imnet_cell(
+                cell.expand(b, h_c, w_c, 2).to(q.dtype)))
+            for i in range(1, self.n_hidden):
+                y = torch.relu(getattr(self, f"imnet_fc{i}")(y))
+            preds.append(getattr(self, f"imnet_fc{self.n_hidden}")(y))
+            areas.append(torch.abs(rel[..., 0] * rel[..., 1]) + 1e-9)
+        areas = areas[::-1]           # the diagonal area swap
+        tot = sum(areas)
+        return sum(p * (a / tot)[..., None] for p, a in zip(preds, areas))
+
+    def forward(self, x: torch.Tensor, size: Tuple[int, int],
+                bsize: Optional[int] = None) -> torch.Tensor:
+        return self.decode(self.encoder(x), size, bsize)

@@ -15,7 +15,9 @@ with the optimizer state, are not ported yet (ROADMAP).
 module names: ``params/<module path>/conv/kernel`` (HWIO) becomes
 ``<module.path>.conv.weight`` (OIHW), ``.../dense/kernel`` (in, out)
 becomes ``.../dense.weight`` (out, in), biases are copied;
-``jax_from_state_dict`` is its inverse.
+``jax_from_state_dict`` is its inverse. ``seeded_params`` draws a
+net's weights from a numpy seed, so that the JAX package and the port can
+compute on the same weights without committing them.
 """
 
 from __future__ import annotations
@@ -92,6 +94,25 @@ def jax_from_state_dict(state: Dict[str, torch.Tensor]
         key = "/".join(["params", *mods,
                         "kernel" if leaf == "weight" else "bias"])
         out[key] = np.ascontiguousarray(a)
+    return out
+
+
+def seeded_params(net: torch.nn.Module, seed: int
+                  ) -> Dict[str, np.ndarray]:
+    """Flat ``params/...`` float32 weights for ``net``'s parameters, drawn
+    from ``np.random.default_rng(seed)`` in sorted flax-path order, each
+    kernel and bias uniform in +-1/sqrt(fan_in) of its layer (the torch
+    default's range; fan_in = kh*kw*cin of an HWIO kernel, cin of a dense
+    one)."""
+    shapes = {k: v.shape for k, v in
+              jax_from_state_dict(net.state_dict()).items()}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in sorted(shapes):
+        kernel = shapes[key.rsplit("/", 1)[0] + "/kernel"]
+        bound = 1.0 / np.sqrt(np.prod(kernel[:-1]))
+        out[key] = rng.uniform(-bound, bound, shapes[key]).astype(
+            np.float32)
     return out
 
 
