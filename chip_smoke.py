@@ -18,7 +18,9 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    weight-gradient kernels tensor-core instructions; every bf16 instance
    of the three (``<...,Bf16>``) must show ``HGMMA``;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
-   on main-path shapes, held against their plain PyTorch versions (max abs
+   on main-path shapes (``decode_window_fwd`` also at the x20 streaming
+   band: LR 256x256, one 32x5120 band), held against their plain PyTorch
+   versions (max abs
    error <= 1e-4: fp32-level sums in another order over K <= 512; the
    products run in 3xTF32 on the tensor cores), a second call bit for bit
    equal to the first, with time (the wrapper's: the weights' split
@@ -119,10 +121,41 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       ``main`` with ``model.arch=<family>`` for 20 steps (validation on
       two images, the checkpoint loads back), with the step's ms (CUDA
       events, steps 2-20) and the host's wait for the next batch;
+8. the user's entry points, fp32, from the flagship weights, each path
+   with the launch counts set to 0 before it and read after it:
+   a. ``cli.demo updown`` of Set5's img0000 (``DEMO_UPDOWN``: LR 64x64 at
+      x3.14, x4, x20, ``--streaming on`` at a 0.6 GB budget): only
+      ``decode_window_fwd``, once a band; each prediction's summaries
+      against the committed JAX-CPU oracle at 6b's bounds; each PNG read
+      back equal to the truncated uint8 of its prediction;
+   b. ``cli.demo sr`` at the reference demo2's size (``DEMO_SR``: 256x256
+      to 5120x5120): streamed at 0.6 GB (band_rows=32, 160 launches) and
+      at the default budget (column chunks of 5, 1024 launches), then one
+      window over the grid; the three outputs bit-equal (or within 1e-6
+      of the largest magnitude, reported), the streaming run's peak device
+      memory below the one-window decode's; walls, the band decodes'
+      device seconds, the PNG write's and the device-to-host copies' host
+      seconds;
+   c. ``cli.runtime_bench --iters 20``: its JSON line, each DIINN scale
+      launching ``decode_int_fwd`` 22 times, no other family a kernel;
+   d. resume through ``cli.train`` (40 steps an epoch, the rate halved at
+      step 40): two straight 2-epoch runs, a 1-epoch run and a 2-epoch run
+      resumed from it: step 80, step 41's rate half of step 1's, the
+      parameters bit-equal to the straight run's if the straight runs
+      agree bit for bit, else within twice their largest relative gap,
+      with the gradients that differ between two backward passes and
+      cuDNN's convolution backward kernels named;
+   e. ``cli.train`` for 8 steps with ``trainer.profile_dir``: the trace
+      annotates steps 3-5 and names ``decode_fwd_kernel`` and
+      ``decode_bwd_chain_kernel`` 9 times each;
+   f. ``debug_nans``: two flagship steps with it give the losses of two
+      without it, bit for bit (both with cuDNN's deterministic
+      algorithms), and a NaN decoder weight raises ``FloatingPointError``;
 7. a ``kernels`` JSON line (each row with its times at every training
-   shape under ``train_shapes``; the bf16 instances as rows of their own,
-   ``dtype`` bfloat16; ``launches_by_path`` with every path above), and
-   last the device JSON line.
+   shape under ``train_shapes``, the forwards' eval shapes under
+   ``eval_shapes``; the bf16 instances as rows of their own, ``dtype``
+   bfloat16; ``launches_by_path`` with every path above), and last the
+   device JSON line.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA it
 exits non-zero before printing any result.
@@ -130,7 +163,9 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import io
 import json
 import math
 import re
@@ -144,22 +179,22 @@ import numpy as np
 import torch
 
 from tpu_diinn_torch import bench
-from tpu_diinn_torch.cli import benchmarks
+from tpu_diinn_torch.cli import benchmarks, demo, runtime_bench
 from tpu_diinn_torch.cli import train as train_cli
 from tpu_diinn_torch.config.config import load_config
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import _SIN_COEFFS
 from tpu_diinn_torch.core.resize import resize_np
 from tpu_diinn_torch.data import pipeline
+from tpu_diinn_torch.data.png import read_png
 from tpu_diinn_torch.kernels import build
 from tpu_diinn_torch.kernels import decoder_fused as K
 from tpu_diinn_torch.nn.registry import make_net
-from tpu_diinn_torch.train import flops
-from tpu_diinn_torch.train import loop
+from tpu_diinn_torch.train import flops, loop, profiling
 from tpu_diinn_torch.train.checkpoint import (load_params_npz,
                                               seeded_params,
                                               state_dict_from_jax)
-from tpu_diinn_torch.train.task import normalize
+from tpu_diinn_torch.train.task import denormalize, normalize
 
 ORACLE = "tpu_diinn_torch/testdata/flagship_benchmarks_jax_cpu.json"
 TRAIN_ORACLE = "tpu_diinn_torch/testdata/flagship_train_jax_cpu.json"
@@ -212,6 +247,22 @@ KERNEL_TOL_BF16 = 2e-3     # bf16 forward: max abs error
 BWD_TOL_BF16 = 1e-2        # bf16 backward: max abs error / largest magnitude
 MARGIN_BF16 = 1e-3         # relu pre-activation margin of the bf16 chain
 FP32_RATIO = 1.5           # bf16 kernel vs fp32 chain, over plain bf16's
+DEMO_IMAGE = "data/benchmark/Set5/HR/img0000.png"
+DEMO_ORACLE = "tpu_diinn_torch/testdata/demo_streaming_jax_cpu.json"
+# phase 8a's demo (its oracle: python -m tests.test_torch_demo
+# --streaming-oracle DEMO_ORACLE) and 8b's, the reference demo2's x20
+DEMO_UPDOWN = ["updown", "--hr_path", DEMO_IMAGE, "--d_scale", "4",
+               "--scales", "3.14", "4", "20", "--streaming", "on",
+               "--streaming_hbm_gb", "0.6", "--ckpt_path", WEIGHTS]
+DEMO_SR = ["sr", "--lr_path", DEMO_IMAGE, "--output_size", "5120", "5120",
+           "--ckpt_path", WEIGHTS]
+# what DEMO_SR must do: stream in 160 bands of 32 rows at 0.6 GB, else
+# decode in 1024 column chunks of 30000 // 5120 = 5 columns
+X20_SIZE = (5120, 5120)
+X20_STREAM_LINE = ("[streaming decode: est 0.90 GB > budget 0.60 GB, "
+                   "band_rows=32]")
+X20_BANDS, X20_CHUNKS = 160, 1024
+RUNTIME_ITERS = 20         # phase 8c: timed calls, after 2 warm-up calls
 
 
 def phase(label: str, t_start: float, **fields) -> None:
@@ -261,6 +312,18 @@ def patched(obj, name: str, wrap):
         yield
     finally:
         setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN held to its deterministic algorithms for the block: its
+    default weight-gradient kernels sum in no fixed order, so two default
+    fp32 training runs drift apart (``nondeterminism_probe``)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
 
 
 def span_recorder(spans: list, active=lambda: True):
@@ -599,39 +662,46 @@ def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
         checks.setdefault("decode_int_fwd_bf16", []).append(res)
         del zb, z32, synb
     # x3.14 on a 256x256 image: LR 82x82, chunks of 30000 // 256 = 117
-    # columns (the second chunk, as the chunked eval decodes it)
-    h_in, h_out, lo, hi = 82, 256, 117, 234
-    z = torch.randn((1, h_in, h_in, c_all), generator=gen).to(dev)
-    rows = grids.nearest_exact_indices(h_in, h_out)
-    cols = grids.nearest_exact_indices(h_in, h_out)[lo:hi]
-    syn = grids.syn_input_grid((h_in, h_in), (h_out, h_out),
-                               device=dev)[:, lo:hi].contiguous()
-    nq = rows.size * cols.size
-    touched = np.unique(rows).size * np.unique(cols).size * c_all * 4
-    rows_v = K.index_vector(rows, h_in, dev)
-    cols_v = K.index_vector(cols, h_in, dev)
-    res = check_fwd(
-        "decode_window_fwd",
-        lambda: K.decode_window_fwd(z, syn, rows_v, cols_v, p),
-        lambda: K.decode_window_fwd_ref(z, syn, rows, cols, p), nq,
-        touched + syn.numel() * 4 + w_bytes + nq * 12
-        + (rows.size + cols.size) * 4,
-        peaks, f"LR {h_in}x{h_in} -> {h_out}x{h_out}, columns {lo}:{hi}")
-    phase("kernel", t, **res)
-    checks["decode_window_fwd"] = [res]
-    zb, pb, z32, p32 = as_bf16(z, p)
-    synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
-                                device=dev)[:, lo:hi].float().contiguous()
-    res = check_fwd_bf16(
-        "decode_window_fwd",
-        lambda: K.decode_window_fwd(zb, synb, rows_v, cols_v, pb),
-        lambda: K.decode_window_fwd_ref(zb, synb, rows, cols, pb),
-        lambda: K.decode_window_fwd_ref(z32, synb, rows, cols, p32), nq,
-        touched // 2 + synb.numel() * 4 + wb_bytes + nq * 12
-        + (rows.size + cols.size) * 4, peaks, peak_bf16,
-        f"LR {h_in}x{h_in} -> {h_out}x{h_out}, columns {lo}:{hi}")
-    phase("kernel", t, **res)
-    checks["decode_window_fwd_bf16"] = [res]
+    # columns (the second chunk, as the chunked eval decodes it); and the
+    # x20 streaming band of the demo's 5120x5120 output of a 256x256 image
+    # (one band of 32 rows over all columns)
+    for h_in, h_out, window, what in (
+            (82, 256, (0, 256, 117, 234), "columns 117:234"),
+            (256, 5120, (2560, 2592, 0, 5120),
+             "rows 2560:2592 (the x20 streaming band)")):
+        r0, r1, c0, c1 = window
+        z = torch.randn((1, h_in, h_in, c_all), generator=gen).to(dev)
+        rows = grids.nearest_exact_indices(h_in, h_out)[r0:r1]
+        cols = grids.nearest_exact_indices(h_in, h_out)[c0:c1]
+        syn = grids.syn_input_grid((h_in, h_in), (h_out, h_out),
+                                   device=dev)[r0:r1, c0:c1].contiguous()
+        nq = rows.size * cols.size
+        touched = np.unique(rows).size * np.unique(cols).size * c_all * 4
+        idx_bytes = (rows.size + cols.size) * 4
+        rows_v = K.index_vector(rows, h_in, dev)
+        cols_v = K.index_vector(cols, h_in, dev)
+        shape = f"LR {h_in}x{h_in} -> {h_out}x{h_out}, {what}"
+        res = check_fwd(
+            "decode_window_fwd",
+            lambda: K.decode_window_fwd(z, syn, rows_v, cols_v, p),
+            lambda: K.decode_window_fwd_ref(z, syn, rows, cols, p), nq,
+            touched + syn.numel() * 4 + w_bytes + nq * 12 + idx_bytes,
+            peaks, shape)
+        phase("kernel", t, **res)
+        checks.setdefault("decode_window_fwd", []).append(res)
+        zb, pb, z32, p32 = as_bf16(z, p)
+        synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
+                                    device=dev)[r0:r1, c0:c1].float()
+        res = check_fwd_bf16(
+            "decode_window_fwd",
+            lambda: K.decode_window_fwd(zb, synb, rows_v, cols_v, pb),
+            lambda: K.decode_window_fwd_ref(zb, synb, rows, cols, pb),
+            lambda: K.decode_window_fwd_ref(z32, synb, rows, cols, p32), nq,
+            touched // 2 + synb.numel() * 4 + wb_bytes + nq * 12 + idx_bytes,
+            peaks, peak_bf16, shape)
+        phase("kernel", t, **res)
+        checks.setdefault("decode_window_fwd_bf16", []).append(res)
+        del z, zb, z32, syn, synb
     return checks
 
 
@@ -979,8 +1049,8 @@ def timed_train_cli(args: list, tag: str) -> tuple:
     host_gaps, in_step, last_exit = [], [False], [None]
 
     def timed_step(make):
-        def make_timed(state):
-            step = make(state)
+        def make_timed(state, **kwargs):
+            step = make(state, **kwargs)
 
             def call(batch):
                 now = time.perf_counter()
@@ -1490,6 +1560,426 @@ def train_families(dev, t) -> dict:
     return counts
 
 
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured, then printed;
+    returns (its result, the lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue().splitlines()
+
+
+def host_timer(seconds: list):
+    """A wrapper that appends each call's host seconds to ``seconds``."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return call
+    return wrap
+
+
+def only_window_launches(counts: dict, n: int, what: str) -> None:
+    """``decode_window_fwd`` (fp32) launched ``n`` times, nothing else."""
+    want = {k: n if k == "decode_window_fwd" else 0 for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def demo_updown(t) -> dict:
+    """Phase 8a: ``cli.demo`` ``updown`` of Set5's img0000 (LR 64x64) at
+    x3.14, x4 and x20 with ``--streaming on`` and a 0.6 GB budget, from the
+    flagship weights: every band one ``decode_window_fwd`` launch (x4 too,
+    no ``decode_int_fwd``); each prediction's summaries against the
+    JAX-CPU oracle at 6b's bounds; each PNG, read back, equal to the
+    truncated uint8 of its prediction."""
+    with open(DEMO_ORACLE) as f:
+        want = json.load(f)["outputs"]
+    out_dir = WORK / "demo_updown"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    K.reset_launches()
+    written, lines = captured(demo.main, DEMO_UPDOWN + [
+        "--out_dir", str(out_dir), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    bands = [int(m.group(1)) for m in
+             (re.search(r"band_rows=(\d+)", ln) for ln in lines) if m]
+    if len(bands) != len(want):
+        raise AssertionError(f"streaming lines {lines}")
+    n_bands = sum(math.ceil(w["size"][0] / b)
+                  for w, b in zip(want.values(), bands))
+    only_window_launches(counts, n_bands, "demo updown")
+    rel = {}
+    for key, w in want.items():
+        path = str(out_dir / f"default_model_img0000_{key}.png")
+        pred = written[path]
+        if list(pred.shape[1:3]) != w["size"]:
+            raise AssertionError(f"{key}: shape {pred.shape}")
+        rel[key] = hold_summary(summarize(pred), w, f"demo updown {key}")
+        png = read_png(path)
+        quant = (np.clip(pred[0], 0, 1) * 255).astype(np.uint8)
+        if not np.array_equal(png, quant):
+            raise AssertionError(f"{path}: the PNG is not the truncated "
+                                 f"uint8 of the prediction")
+    phase("demo_updown", t, launches=counts, band_rows=bands,
+          max_rel_delta_vs_oracle=rel, pngs_exact=len(rel))
+    return counts
+
+
+def demo_sr_full(dev, t) -> dict:
+    """Phase 8b: ``cli.demo sr`` at the reference demo2's size (256x256 to
+    5120x5120, x20, 26.2 M queries) from the flagship weights: streamed at
+    a 0.6 GB budget (band_rows=32: 160 ``decode_window_fwd`` launches),
+    and at the default budget in column chunks of eval_bsize // 5120 = 5
+    columns (1024 launches); then one window over the whole grid. The
+    three outputs must be bit-equal (the same chain per query, tiled
+    otherwise), and the streaming run's peak device memory below the
+    one-window decode's. Returns the launches of each run."""
+    runs, preds, counts = {}, {}, {}
+    for tag, extra, n, line in (
+            ("streaming", ["--streaming_hbm_gb", "0.6"], X20_BANDS,
+             X20_STREAM_LINE),
+            ("chunked", [], X20_CHUNKS, None)):
+        out_dir = WORK / f"demo_sr_{tag}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        spans, save_s = [], []
+        K.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched(K, "decode_window_fwd", span_recorder(spans)), \
+                patched(demo, "_save_image", host_timer(save_s)):
+            written, lines = captured(demo.main, DEMO_SR + extra + [
+                "--out_dir", str(out_dir), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"demo_sr_{tag}"] = dict(K.launches)
+        only_window_launches(K.launches, n, f"demo sr {tag}")
+        streamed = [ln for ln in lines if ln.startswith("[streaming")]
+        if streamed != ([line] if line else []):
+            raise AssertionError(f"demo sr {tag}: printed {lines}")
+        (pred,) = written.values()
+        preds[tag] = np.asarray(pred, dtype=np.float32)
+        runs[tag] = {"wall_seconds": wall,
+                     "decode_window_fwd_device_seconds": span_seconds(spans),
+                     "png_write_host_seconds": save_s[0],
+                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        del written, pred
+    # one window over the whole grid, as the demo's net computes it
+    args = argparse.Namespace(model_name="default_model", ckpt_path=WEIGHTS)
+    task = demo._build(args, [], dev)
+    lr = torch.from_numpy(demo._load_image(DEMO_IMAGE)).to(dev)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = events()
+    with torch.inference_mode():
+        a.record()
+        whole = torch.clamp(denormalize(task.net(normalize(lr), X20_SIZE,
+                                                 None)), 0, 1)
+        b.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds["one_window"] = whole.cpu().numpy()
+        d2h = time.perf_counter() - t0
+        band = whole[:, :32].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(X20_BANDS):
+            band.cpu()
+        d2h_bands = time.perf_counter() - t0
+    counts["demo_sr_one_window"] = dict(K.launches)
+    only_window_launches(K.launches, 1, "one window")
+    runs["one_window"] = {
+        "device_seconds": a.elapsed_time(b) / 1e3,
+        "d2h_host_seconds": d2h,
+        "d2h_host_seconds_of_the_bands": d2h_bands,
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del whole, band, task
+    ref = preds["one_window"]
+    scale = float(np.abs(ref).max())
+    diffs = {k: float(np.abs(v - ref).max()) for k, v in preds.items()}
+    if any(d > 1e-6 * scale for d in diffs.values()):
+        raise AssertionError(f"x20 decodes differ: {diffs} (largest "
+                             f"magnitude {scale})")
+    if not (runs["streaming"]["peak_device_bytes"]
+            < runs["one_window"]["peak_device_bytes"]):
+        raise AssertionError(f"streaming peak not below one window: {runs}")
+    phase("demo_sr_x20", t, runs=runs, max_abs_diff_vs_one_window=diffs,
+          bit_equal=all(np.array_equal(v, ref) for v in preds.values()),
+          launches=counts)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def runtime_table(t) -> dict:
+    """Phase 8c: ``cli.runtime_bench`` with ``--iters 20`` (its JSON on a
+    line of its own): each DIINN scale launches ``decode_int_fwd`` exactly
+    2 + 20 times (warm-up and timed calls), no other family any decoder
+    kernel."""
+    per_call = []
+
+    def counting(fn):
+        def call(*args, **kwargs):
+            before = dict(K.launches)
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            per_call.append({k: v - before[k] for k, v in K.launches.items()
+                             if v != before[k]})
+            return out
+        return call
+    K.reset_launches()
+    with patched(runtime_bench, "synced_time", counting):
+        results = runtime_bench.main(["--iters", str(RUNTIME_ITERS),
+                                      "--device", "cuda"])
+    counts = dict(K.launches)
+    by_key = dict(zip(results, per_call))
+    for key, got in by_key.items():
+        want = ({"decode_int_fwd": 2 + RUNTIME_ITERS}
+                if key.startswith("diinn_") else {})
+        if got != want:
+            raise AssertionError(f"runtime_bench {key}: launches {got}, "
+                                 f"expected {want}")
+    phase("runtime_bench", t, ms=results, launches=counts)
+    return counts
+
+
+def params_gap(a: dict, b: dict) -> float:
+    """The largest relative gap between two state dicts: max over tensors
+    of max |a - b| / max |a|."""
+    return max(float((a[k] - b[k]).abs().max() / a[k].abs().max().clamp(
+        min=1e-30)) for k in a)
+
+
+def train_resume(dev, t) -> dict:
+    """Phase 8d: resume through ``cli.train`` on DIV2K at 40 steps an
+    epoch (``data.trainsets_repeat=1``), the rate halving at step 40
+    (``model.lr_step=1``), with cuDNN held to its deterministic
+    algorithms: two straight 2-epoch runs (their gap is the witness), a
+    1-epoch run, and a 2-epoch run resumed from it. The resumed run ends
+    at step 80 with step 41's rate half of step 1's. If the two straight
+    runs agree bit for bit, the resumed run must equal them bit for bit;
+    else (the fallback) it must be within twice the straight runs' largest
+    relative gap, and ``nondeterminism_probe`` names the gradients and
+    kernels that differ between two runs. Also reports what the
+    deterministic algorithms cost a flagship step."""
+    base = ["data.trainsets_repeat=1", "model.lr_step=1",
+            "trainer.limit_val_images=2"]
+    lrs = {}
+
+    def recording(tag):
+        def wrap(fn):
+            def call(state):
+                lrs.setdefault(tag, []).append(
+                    state.optimizer.param_groups[0]["lr"])
+                return fn(state)
+            return call
+        return wrap
+    K.reset_launches()
+    states, secs = {}, {}
+    with cudnn_deterministic():
+        for tag, extra in (
+                ("straight_a", ["trainer.max_epochs=2"]),
+                ("straight_b", ["trainer.max_epochs=2"]),
+                ("part", ["trainer.max_epochs=1"]),
+                ("resumed", ["trainer.max_epochs=2",
+                             f"trainer.resume={WORK / 'resume_part'}"])):
+            t0 = time.perf_counter()
+            with patched(loop, "apply_update", recording(tag)):
+                state, _, _ = run_train_cli(base + extra, f"resume_{tag}")
+            torch.cuda.synchronize()
+            secs[tag] = time.perf_counter() - t0
+            states[tag] = {k: v.detach().clone() for k, v in
+                           state.task.net.state_dict().items()}
+            if tag == "resumed":
+                steps = state.step
+            del state
+    counts = dict(K.launches)
+    if not (steps == 80 and len(lrs["resumed"]) == 40
+            and lrs["resumed"][0] == 0.5 * lrs["part"][0]):
+        raise AssertionError(f"resumed run: step {steps}, rates of steps 1 "
+                             f"and 41 {lrs['part'][:1]}, {lrs['resumed'][:1]}")
+    witness = params_gap(states["straight_a"], states["straight_b"])
+    gap = params_gap(states["straight_a"], states["resumed"])
+    straight_equal = all(torch.equal(v, states["straight_b"][k])
+                         for k, v in states["straight_a"].items())
+    resumed_equal = all(torch.equal(v, states["resumed"][k])
+                        for k, v in states["straight_a"].items())
+    if straight_equal and not resumed_equal:
+        raise AssertionError(f"the straight runs agree bit for bit, the "
+                             f"resumed run does not (relative gap {gap})")
+    if not straight_equal and not gap <= 2 * witness:
+        raise AssertionError(f"resumed vs straight: relative gap {gap} > "
+                             f"2 x the straight runs' {witness}")
+    probe = None if straight_equal else nondeterminism_probe(dev)
+    phase("train_resume", t, steps=steps, lr_step1=lrs["part"][0],
+          lr_step41=lrs["resumed"][0], cudnn_deterministic=True,
+          straight_runs_bit_equal=straight_equal,
+          resumed_bit_equal=resumed_equal, straight_runs_rel_gap=witness,
+          resumed_rel_gap=gap, cli_seconds=secs,
+          step_ms=deterministic_step_cost(dev), nondeterminism=probe,
+          launches=counts)
+    return counts
+
+
+def deterministic_step_cost(dev, warmup: int = 3, iters: int = 10) -> dict:
+    """Mean device ms of a flagship fp32 training step (committed weights,
+    the first batch of epoch 0, repeated) by default and under
+    ``cudnn_deterministic``, in turns: default, deterministic,
+    deterministic, default."""
+    cfg = load_config(None, [])
+    (host_batch,), spe = first_batches(cfg, 1)
+    flat, _ = load_params_npz(WEIGHTS)
+    state = loop.init_state(cfg, spe, device=dev, params=flat)
+    step = loop.make_train_step(state)
+    batch = loop.to_device(host_batch, dev)
+    ms = {"default": [], "cudnn_deterministic": []}
+    for tag in ("default", "cudnn_deterministic", "cudnn_deterministic",
+                "default"):
+        with (cudnn_deterministic() if tag != "default"
+              else contextlib.nullcontext()):
+            for _ in range(warmup):
+                step(batch)
+            a, b = events()
+            a.record()
+            for _ in range(iters):
+                step(batch)
+            b.record()
+            torch.cuda.synchronize()
+        ms[tag].append(a.elapsed_time(b) / iters)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    out = {k: float(np.mean(v)) for k, v in ms.items()}
+    out["turns"] = ms
+    out["cost"] = out["cudnn_deterministic"] / out["default"] - 1.0
+    return out
+
+
+def nondeterminism_probe(dev) -> dict:
+    """Which gradients of a flagship step differ between two backward
+    passes on the same batch and weights: by default, and with
+    ``torch.backends.cudnn.deterministic`` (cuDNN restricted to its
+    deterministic algorithms); the input image's gradient (cuDNN's dgrad
+    through the encoder) and each parameter's; and the cuDNN convolution
+    backward kernels that the default step runs (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = load_config(None, [])
+    (host_batch,), spe = first_batches(cfg, 1)
+    flat, _ = load_params_npz(WEIGHTS)
+    state = loop.init_state(cfg, spe, device=dev, params=flat)
+    net = state.task.net
+
+    def grads():
+        batch = loop.to_device(host_batch, dev)
+        for lr, _ in batch.values():
+            lr.requires_grad_(True)
+        net.zero_grad(set_to_none=True)
+        state.task.train_loss(batch).backward()
+        out = {n: p.grad.clone() for n, p in net.named_parameters()}
+        out.update({f"input x{s:g}": lr.grad.clone()
+                    for s, (lr, _) in batch.items()})
+        return out
+
+    def differing():
+        a, b = grads(), grads()
+        return sorted(k for k in a if not torch.equal(a[k], b[k]))
+    default = differing()
+    with cudnn_deterministic():
+        deterministic = differing()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads()
+        torch.cuda.synchronize()
+    conv_bwd = sorted({e.key for e in prof.key_averages()
+                       if any(w in e.key.lower() for w in ("wgrad", "dgrad"))})
+    del state, net
+    torch.cuda.empty_cache()
+    return {"differing_grads_default": len(default),
+            "differing_examples": default[:6],
+            "decoder_grads_differ": any(k.startswith("decoder.")
+                                        for k in default),
+            "differing_grads_cudnn_deterministic": deterministic,
+            "cudnn_conv_backward_kernels": conv_bwd}
+
+
+def train_profile(t) -> dict:
+    """Phase 8e: ``cli.train`` for 8 steps with ``trainer.profile_dir``:
+    the Chrome trace covers steps 3-5 (after two warm-up steps), and names
+    ``decode_fwd_kernel`` and ``decode_bwd_chain_kernel`` 9 times each, 3
+    a step."""
+    prof_dir = WORK / "profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run_train_cli(["--max-steps", "8", f"trainer.profile_dir={prof_dir}",
+                   "trainer.profile_steps=3",
+                   "trainer.check_val_every_n_epoch=1000"], "train_profile")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(K.launches)
+    (trace,) = prof_dir.glob("*.pt.trace.json")
+    events_ = json.loads(trace.read_text())["traceEvents"]
+    steps = sorted(e["name"] for e in events_
+                   if e.get("cat") == "user_annotation"
+                   and str(e.get("name", "")).startswith("train_step "))
+    kernels = {name: sum(1 for e in events_ if e.get("cat") == "kernel"
+                         and name in e.get("name", ""))
+               for name in ("decode_fwd_kernel", "decode_bwd_chain_kernel")}
+    if steps != [f"train_step {i}" for i in (3, 4, 5)] or any(
+            n != 9 for n in kernels.values()):
+        raise AssertionError(f"profile: steps {steps}, kernels {kernels}")
+    phase("train_profile", t, trace=str(trace),
+          trace_bytes=trace.stat().st_size, steps=steps,
+          kernel_events=kernels, cli_seconds=secs, launches=counts)
+    return counts
+
+
+def debug_nans(dev, t) -> dict:
+    """Phase 8f: two flagship steps (from the committed weights, on the
+    first batches of epoch 0) with ``debug_nans`` give the same losses as
+    without it, bit for bit; both run with cuDNN held to its deterministic
+    algorithms (``cudnn_deterministic``), as phase 8d's runs do: two
+    default runs may differ in step 2. A
+    third step with one decoder weight set to NaN must raise
+    ``FloatingPointError``; any other exception ends the run."""
+    cfg = load_config(None, [])
+    batches, spe = first_batches(cfg, 3)
+    flat, _ = load_params_npz(WEIGHTS)
+    K.reset_launches()
+    losses, secs = {}, {}
+    with cudnn_deterministic():
+        for tag, on in (("off", False), ("on", True)):
+            state = loop.init_state(cfg, spe, device=dev, params=flat)
+            step = loop.make_train_step(state, debug_nans=on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.enable_debug_nans(on):
+                losses[tag] = [float(step(loop.to_device(b, dev))["loss"])
+                               for b in batches[:2]]
+            torch.cuda.synchronize()
+            secs[tag] = time.perf_counter() - t0
+    if losses["on"] != losses["off"]:
+        raise AssertionError(f"debug_nans changed the losses: {losses}")
+    state.task.net.decoder.q1.dense.weight.data[0, 0] = float("nan")
+    with profiling.enable_debug_nans(True):
+        try:
+            step(loop.to_device(batches[2], dev))
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a NaN decoder weight did not raise under "
+                                 "debug_nans")
+    counts = dict(K.launches)
+    phase("debug_nans", t, losses=losses, raised=raised,
+          host_seconds_two_steps=secs, launches=counts)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
         bf16_cpu_witness(argv[1])
@@ -1578,6 +2068,15 @@ def main(argv: list) -> int:
     for fam in FAMILIES:
         step_profile(dev, time.perf_counter(), [f"model.arch={fam}"],
                      f"step_profile_{fam}")
+    torch.cuda.empty_cache()
+
+    # 8) the user's entry points
+    by_path["demo_updown"] = demo_updown(time.perf_counter())
+    by_path.update(demo_sr_full(dev, time.perf_counter()))
+    by_path["runtime_bench"] = runtime_table(time.perf_counter())
+    by_path["train_resume"] = train_resume(dev, time.perf_counter())
+    by_path["train_profile"] = train_profile(time.perf_counter())
+    by_path["debug_nans"] = debug_nans(dev, time.perf_counter())
 
     # 7) kernels line, then the device line
     kernels = []
@@ -1608,6 +2107,8 @@ def main(argv: list) -> int:
         entry["train_shapes"] = [
             {k: r[k] for k in keys}
             for r in (checks[f"{key}_train"] if name in FWD else rs)]
+        if name in FWD:
+            entry["eval_shapes"] = [{k: r[k] for k in keys} for r in rs]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -77,7 +77,10 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.nn.registry", "tpu_diinn_torch.nn.edsr",
         "tpu_diinn_torch.nn.mlp", "tpu_diinn_torch.nn.liif",
         "tpu_diinn_torch.nn.metasr", "tpu_diinn_torch.nn.bicubic",
-        "tpu_diinn_torch.compat.torch_loader", "chip_smoke"]
+        "tpu_diinn_torch.compat.torch_loader", "tpu_diinn_torch.cli.demo",
+        "tpu_diinn_torch.cli.runtime_bench", "tpu_diinn_torch.train.streaming",
+        "tpu_diinn_torch.train.profiling", "tpu_diinn_torch.data.png",
+        "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', "

@@ -128,6 +128,56 @@ def test_decode_window_fwd_is_deterministic():
     assert torch.equal(a, b)
 
 
+def test_decode_window_fwd_streaming_band_matches_plain():
+    """The x20 streaming band of the demo's 5120 x 5120 output: LR
+    256 x 256, z of 4 x 256 channels, one band of 32 rows over all 5120
+    columns (B 1), fp32 within 1e-4 and the bf16 instance within 2e-2 of
+    the largest magnitude (the bf16 bound below)."""
+    dev = _device()
+    gen = torch.Generator().manual_seed(20)
+    p = _params(256, 4, gen, dev)
+    z = torch.randn((1, 256, 256, 4 * 256), generator=gen).to(dev)
+    lo, hi = 2560, 2592
+    rows = grids.nearest_exact_indices(256, 5120)[lo:hi]
+    cols = grids.nearest_exact_indices(256, 5120)
+    syn = grids.syn_input_grid((256, 256), (5120, 5120),
+                               device=dev)[lo:hi].contiguous()
+    rv, cv = K.index_vector(rows, 256, dev), K.index_vector(cols, 256, dev)
+    got = K.decode_window_fwd(z, syn, rv, cv, p)
+    want = K.decode_window_fwd_ref(z, syn, rows, cols, p)
+    assert got.shape == (1, 32, 5120, 3)
+    assert (got - want).abs().max().item() <= 1e-4
+    zb, pb = z.to(torch.bfloat16), {
+        k: v.to(torch.bfloat16) if k in K.WEIGHT_KEYS else v
+        for k, v in p.items()}
+    got = K.decode_window_fwd(zb, syn, rv, cv, pb)
+    want = K.decode_window_fwd_ref(zb, syn, rows, cols, pb)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+
+def test_streaming_decode_equals_one_window_decode(monkeypatch):
+    """``predict_streaming`` (one ``decode_window_fwd`` launch a band) and
+    one window over the whole x20 grid agree bit for bit: the same chain
+    per query, tiled otherwise (flagship decoder widths over an RDN-tiny
+    encoder, LR 16 x 16 -> 320 x 320, bands of 32 rows)."""
+    from tpu_diinn_torch.train.streaming import predict_streaming
+    from tpu_diinn_torch.train.task import denormalize, normalize
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = DIINN(encoder_spec="rdn-tiny",
+                generator=torch.Generator().manual_seed(2)).to(dev)
+    x = torch.rand((1, 16, 16, 3),
+                   generator=torch.Generator().manual_seed(3)).to(dev)
+    before = K.launches["decode_window_fwd"]
+    got = predict_streaming(net, x, (320, 320), band_rows=32)
+    assert K.launches["decode_window_fwd"] == before + 10
+    with torch.no_grad():
+        whole = net(normalize(x), (320, 320), None)
+    want = torch.clamp(denormalize(whole), 0.0, 1.0).cpu().numpy()
+    assert np.array_equal(got, want)
+
+
 MARGIN = 1e-5
 
 
@@ -254,13 +304,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                                       device=dev))
 
 
-def test_grad_recording_flagship_forward_launches_the_kernels():
+def test_grad_recording_flagship_forward_launches_the_kernels(monkeypatch):
     """The flagship config (RDN-B, mode 3, 4 x 256, fp32) with its
     parameters recording gradients: each route launches its forward
     kernel, and a backward through it launches the matching backward
     kernel once and fills every parameter's gradient."""
     dev = _device()
-    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     net = DIINN(generator=torch.Generator().manual_seed(0)).to(dev)
     x = torch.rand((1, 8, 8, 3), generator=torch.Generator().manual_seed(1))
     x = x.to(dev)

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tpu_diinn.config.config import load_config as jload_config
 from tpu_diinn.data import datasets as jds
@@ -50,6 +51,18 @@ FLAGSHIP = REPO / "results" / "flagship_weights.npz"
 TINY = ["model.encoder=rdn-tiny", "model.hidden_dims=[32,32,32]",
         "data.synthetic=true", "data.batch_size=2", "data.patch_size=12",
         "data.trainsets_repeat=1"]
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of tiny shapes: the suite runs
+    several workers on the host's cores, and with a thread per core each
+    the port's small ops (``torch.profiler``'s most of all) wait on one
+    another, up to tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _flatten(tree, prefix=""):

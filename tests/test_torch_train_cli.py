@@ -74,6 +74,26 @@ def test_train_batches_match_jax_numpy_path():
         tb.close()
 
 
+def test_train_batches_in_process_match_jax_numpy_path():
+    """``num_workers=0`` makes the samples in the calling process: the
+    same batches as the JAX numpy path's (and so as the workers')."""
+    kw = dict(root=str(REPO / "data"), name="DIV2K", split="train",
+              scales=[2, 3.5], patch_size=24, augment=True)
+    j = jds.SRDatasetDownsample(use_native=False, **kw)
+    t = tds.SRDatasetDownsample(**kw)
+    args = dict(batch_size=3, epoch=1, seed=7, repeat=2, num_workers=0)
+    jb = jpipe.train_batches(j, **args)
+    tb = tpipe.train_batches(t, **args)
+    for _ in range(2):
+        a, b = next(jb), next(tb)
+        assert list(a) == list(b) == [2, 3.5]
+        for s in a:
+            np.testing.assert_array_equal(a[s][0], b[s][0])
+            np.testing.assert_array_equal(a[s][1], b[s][1])
+    jb.close()
+    tb.close()
+
+
 @pytest.mark.parametrize("steps_per_epoch", [1, 7, 800])
 def test_lr_schedule_matches_step_decay_schedule(steps_per_epoch):
     sched = step_decay_schedule(1.0, steps_per_epoch, 10, 0.5, 50)

@@ -47,7 +47,7 @@ class DataConfig:
     test_scales: List[float] = field(
         default_factory=lambda: [2, 2.5, 3, 3.5, 4, 6, 8, 10, 15, 20])
     patch_size: int = 48
-    num_workers: int = 8            # host-side prefetch threads
+    num_workers: int = 8            # sample worker processes (0: in-process)
     synthetic: bool = False
 
 

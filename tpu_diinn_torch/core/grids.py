@@ -56,11 +56,12 @@ def nearest_exact_indices(n_in: int, n_out: int) -> np.ndarray:
     return np.clip(idx, 0, n_in - 1).astype(np.int32)
 
 
-def rel_coord_grid(in_size: tuple[int, int], out_size: tuple[int, int],
-                   *, dtype=torch.float32, device=None) -> torch.Tensor:
-    """(H_out, W_out, 2) relative-coordinate encoding of the DIINN decoder:
-    each query's own pixel-center coordinate minus that of its
-    nearest-exact LR cell, y scaled by H_in and x by W_in."""
+def rel_coord_axes(in_size: tuple[int, int], out_size: tuple[int, int],
+                   *, dtype=torch.float32, device=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two 1-D factors (H_out,) and (W_out,) of ``rel_coord_grid``:
+    each output row's (column's) pixel-center coordinate minus that of its
+    nearest-exact LR row (column), scaled by H_in (W_in)."""
     h_in, w_in = in_size
     h_out, w_out = out_size
     kw = dict(dtype=dtype, device=device)
@@ -74,9 +75,23 @@ def rel_coord_grid(in_size: tuple[int, int], out_size: tuple[int, int],
         xs_in.device, torch.long)
     ry = (ys_out - ys_in[ridx]) * _scalar(h_in, dtype, ys_in.device)
     rx = (xs_out - xs_in[cidx]) * _scalar(w_in, dtype, xs_in.device)
-    ry = ry[:, None].expand(h_out, w_out)
-    rx = rx[None, :].expand(h_out, w_out)
-    return torch.stack([ry, rx], dim=-1)
+    return ry, rx
+
+
+def _outer(ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """(len(ry), len(rx), 2) grid of the pairs (ry[i], rx[j])."""
+    shape = (ry.shape[0], rx.shape[0])
+    return torch.stack([ry[:, None].expand(shape), rx[None, :].expand(shape)],
+                       dim=-1)
+
+
+def rel_coord_grid(in_size: tuple[int, int], out_size: tuple[int, int],
+                   *, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(H_out, W_out, 2) relative-coordinate encoding of the DIINN decoder:
+    each query's own pixel-center coordinate minus that of its
+    nearest-exact LR cell, y scaled by H_in and x by W_in."""
+    return _outer(*rel_coord_axes(in_size, out_size, dtype=dtype,
+                                  device=device))
 
 
 def area_ratio(in_size: tuple[int, int], out_size: tuple[int, int]) -> float:
@@ -84,14 +99,22 @@ def area_ratio(in_size: tuple[int, int], out_size: tuple[int, int]) -> float:
     return (in_size[0] * in_size[1]) / (out_size[0] * out_size[1])
 
 
+def syn_from_axes(ry: torch.Tensor, rx: torch.Tensor,
+                  ratio: float) -> torch.Tensor:
+    """(len(ry), len(rx), 3) synthesis input [rel_y, rel_x, ratio] from
+    ``rel_coord_axes``' vectors, in their dtype. Sliced vectors give the
+    matching window of ``syn_input_grid``, bit for bit."""
+    rel = _outer(ry, rx)
+    r = _scalar(ratio, ry.dtype, ry.device).expand(rel.shape[:2] + (1,))
+    return torch.cat([rel, r], dim=-1)
+
+
 def syn_input_grid(in_size: tuple[int, int], out_size: tuple[int, int],
                    *, dtype=torch.float32, device=None) -> torch.Tensor:
     """(H_out, W_out, 3) synthesis input [rel_y, rel_x, area_ratio] in
     ``dtype``; batch-independent, callers broadcast."""
-    rel = rel_coord_grid(in_size, out_size, dtype=dtype, device=device)
-    ratio = _scalar(area_ratio(in_size, out_size), dtype,
-                    rel.device).expand(rel.shape[:2] + (1,))
-    return torch.cat([rel, ratio], dim=-1)
+    ry, rx = rel_coord_axes(in_size, out_size, dtype=dtype, device=device)
+    return syn_from_axes(ry, rx, area_ratio(in_size, out_size))
 
 
 def cell_grid(out_size: tuple[int, int], *, dtype=torch.float32,

@@ -72,24 +72,36 @@ def train_batches(dataset, *, batch_size: int, epoch: int, seed: int = 123,
                   repeat: int = 1, num_workers: int = 8) -> Iterator[Batch]:
     """Shuffled, repeated, prefetched training batches; the last partial
     batch is dropped. ``num_workers`` worker processes make the samples;
-    they are stopped when the iterator finishes or is closed."""
+    they are stopped when the iterator finishes or is closed. With
+    ``num_workers=0`` the calling process makes them (the same bytes: each
+    sample's generator is its own), which spares small runs the workers'
+    start-up."""
     n = len(dataset) * repeat
     order = np.random.default_rng(
         np.random.SeedSequence([seed, epoch])).permutation(n)
     order = order[:(n // batch_size) * batch_size]
     jobs = [(int(g) % len(dataset), seed, epoch, int(g)) for g in order]
-    workers = max(1, num_workers)
+    if num_workers == 0:
+        samples = (dataset.sample(i, _sample_rng(s, e, g))
+                   for i, s, e, g in jobs)
+        yield from _batched(samples, batch_size)
+        return
     with ProcessPoolExecutor(
-            max_workers=workers,
+            max_workers=num_workers,
             mp_context=multiprocessing.get_context("spawn"),
             initializer=_init_worker, initargs=(dataset,)) as pool:
-        buf = []
-        for sample in _bounded_map(pool, _load_sample, jobs,
-                                   max(2 * workers, 2 * batch_size)):
-            buf.append(sample)
-            if len(buf) == batch_size:
-                yield _collate(buf)
-                buf = []
+        yield from _batched(_bounded_map(
+            pool, _load_sample, jobs,
+            max(2 * num_workers, 2 * batch_size)), batch_size)
+
+
+def _batched(samples, batch_size: int) -> Iterator[Batch]:
+    buf = []
+    for sample in samples:
+        buf.append(sample)
+        if len(buf) == batch_size:
+            yield _collate(buf)
+            buf = []
 
 
 def _collate(samples) -> Batch:

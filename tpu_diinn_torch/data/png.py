@@ -1,9 +1,10 @@
-"""PNG reader on stdlib ``zlib`` and numpy.
+"""PNG reader and writer on stdlib ``zlib`` and numpy.
 
 Counterpart of the JAX pipeline's ``datasets._read_image`` (PIL), for the
 files this repository carries: 8-bit, non-interlaced RGB or RGBA (alpha is
 dropped, as PIL's ``convert("RGB")`` does). Any other PNG raises with the
-file's name.
+file's name. ``write_png`` writes 8-bit RGB with every row unfiltered
+(filter type 0), the counterpart of the JAX demo's PIL save.
 
 Unfiltering is vectorised over anti-diagonals: every PNG filter predicts a
 pixel from its left, upper and upper-left neighbours only, so all pixels on
@@ -91,3 +92,26 @@ def read_png(path: str) -> np.ndarray:
                          f"expected {h * (1 + w * bpp)}")
     img = _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
     return np.ascontiguousarray(img[:, :, :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB array as an 8-bit PNG, every row with
+    filter type 0, the data deflated at zlib level 6 (PIL's default)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{path}: write_png takes (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    raw = np.zeros((h, 1 + w * 3), np.uint8)      # column 0: filter type 0
+    raw[:, 1:] = img.reshape(h, w * 3)
+    data = (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

@@ -28,11 +28,12 @@ Routing mirrors the JAX ``__call__`` and is decided once per ``forward``.
 ``_fused_ok`` (configuration only) picks the fused decoder
 (``kernels/decoder_fused.decode``: the CUDA forward and backward kernels
 for a CUDA tensor, their plain versions on the CPU) or the eager
-``hr_step``. Without ``bsize``, and for integer ratios (s <= 16)
-on the fused decoder, the whole grid decodes at once; any other ``bsize``
-decode runs serial column chunks of ``bsize // H_out`` columns (the
-reference ``batched_step``; mode 4's window-local output conv depends on
-these chunk borders).
+``hr_step``. Integer ratios (s <= 16) on the fused decoder decode the
+whole grid at once; otherwise ``windows`` decodes one window over the
+grid without ``bsize``, or serial column chunks of ``bsize // H_out``
+columns (the reference ``batched_step``; mode 4's window-local output
+conv depends on these chunk borders). ``windows`` is also the unit of the
+streaming decode (``train/streaming.py``).
 
 NHWC at every public method; NCHW inside for ``conv2d``.
 
@@ -224,41 +225,63 @@ class ImplicitDecoder(nn.Module):
                 bsize: Optional[int] = None) -> torch.Tensor:
         _, h_in, w_in, _ = feat.shape
         h_out, w_out = size
+        s_h, rem_h = divmod(h_out, h_in)
+        s_w, rem_w = divmod(w_out, w_in)
+        if (self._fused_ok(feat) and rem_h == 0 and rem_w == 0
+                and 1 <= s_h <= kern.MAX_INT_RATIO
+                and 1 <= s_w <= kern.MAX_INT_RATIO):
+            z = self.lr_features_stacked(feat)
+            # built in the features' dtype, as the JAX decoder builds it;
+            # the kernels' syn is fp32
+            syn = grids.syn_input_grid((h_in, w_in), (h_out, w_out),
+                                       dtype=feat.dtype, device=feat.device)
+            return kern.decode(z, syn.float(), self._fused_params(),
+                               ratio=(s_h, s_w)).to(z.dtype)
+        # serial column chunks of bsize // H_out queries (reference
+        # batched_step); the LR features are computed once for all chunks
+        window = self.windows(feat, size)
+        chunk = w_out if bsize is None else max(1, bsize // h_out)
+        return torch.cat([window(0, h_out, lo, min(lo + chunk, w_out))
+                          for lo in range(0, w_out, chunk)], dim=2)
+
+    def windows(self, feat: torch.Tensor, size: Tuple[int, int]):
+        """``window(row_lo, row_hi, col_lo, col_hi)``: the decode of that
+        window of the ``size`` grid, the unit of chunked and streaming
+        decodes. The LR features (the stacked conv on the fused route),
+        the index vectors and the relative-coordinate vectors are computed
+        once, here; each window slices them and builds only its own
+        synthesis grid, bit-equal to the full grid's. The fused
+        route takes the window kernel at every ratio (as the JAX package's
+        ``decode_window``); mode 4's output conv is window-local."""
+        _, h_in, w_in, _ = feat.shape
+        h_out, w_out = size
         rows = grids.nearest_exact_indices(h_in, h_out)
         cols = grids.nearest_exact_indices(w_in, w_out)
         # built in the features' dtype, as the JAX decoder builds it
-        syn = grids.syn_input_grid((h_in, w_in), (h_out, w_out),
-                                   dtype=feat.dtype, device=feat.device)
+        ry, rx = grids.rel_coord_axes((h_in, w_in), size, dtype=feat.dtype,
+                                      device=feat.device)
+        ratio = grids.area_ratio((h_in, w_in), size)
+
+        def syn(r0, r1, c0, c1):
+            return grids.syn_from_axes(ry[r0:r1], rx[c0:c1], ratio)
         if self._fused_ok(feat):
             z = self.lr_features_stacked(feat)
             params = self._fused_params()
-            syn = syn.float()   # the kernels' syn is fp32
-            s_h, rem_h = divmod(h_out, h_in)
-            s_w, rem_w = divmod(w_out, w_in)
-            if (rem_h == 0 and rem_w == 0
-                    and 1 <= s_h <= kern.MAX_INT_RATIO
-                    and 1 <= s_w <= kern.MAX_INT_RATIO):
-                return kern.decode(z, syn, params,
-                                   ratio=(s_h, s_w)).to(z.dtype)
-            # index vectors uploaded once; each chunk reads a view of them
+            # index vectors uploaded once; each window reads views of them
             rows_v = kern.index_vector(rows, h_in, feat.device)
             cols_v = kern.index_vector(cols, w_in, feat.device)
 
-            def decode(lo, hi):
-                return kern.decode(z, syn[:, lo:hi].contiguous(), params,
-                                   rows=rows_v,
-                                   cols=cols_v[lo:hi]).to(z.dtype)
+            def window(r0, r1, c0, c1):
+                return kern.decode(z, syn(r0, r1, c0, c1).float(), params,
+                                   rows=rows_v[r0:r1],
+                                   cols=cols_v[c0:c1]).to(z.dtype)
         else:
             zs = self.lr_features(feat)
 
-            def decode(lo, hi):
-                return self.decode_window(zs, syn[:, lo:hi], rows,
-                                          cols[lo:hi])
-        # serial column chunks of bsize // H_out queries (reference
-        # batched_step); the LR features are computed once for all chunks
-        chunk = w_out if bsize is None else max(1, bsize // h_out)
-        return torch.cat([decode(lo, min(lo + chunk, w_out))
-                          for lo in range(0, w_out, chunk)], dim=2)
+            def window(r0, r1, c0, c1):
+                return self.decode_window(zs, syn(r0, r1, c0, c1),
+                                          rows[r0:r1], cols[c0:c1])
+        return window
 
     def decode_window(self, zs: Tuple[Optional[torch.Tensor], ...],
                       syn: torch.Tensor, rows: np.ndarray, cols: np.ndarray

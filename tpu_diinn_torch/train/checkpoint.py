@@ -8,8 +8,17 @@ patterns of bf16 under a ``bf16:`` prefix, and a ``__meta__`` JSON string
 with step, epoch, val_loss and the training config. bf16 widens to fp32
 exactly by shifting its bits into the high half of a float32, so no bf16
 dtype package is needed. The trainer writes its checkpoints in this
-format, fp32 and raw (params only); orbax directories, and so resuming
-with the optimizer state, are not ported yet (ROADMAP).
+format, fp32 and raw: ``best.npz`` and ``last.npz`` hold the parameters
+alone (the JAX package's ``load_params_npz`` reads every key of an export
+as a parameter), and ``last.train_state.npz`` beside ``last`` what
+resuming needs besides them: Adam's ``exp_avg``, ``exp_avg_sq`` and
+``step`` per parameter under ``<name>:<flax path>`` keys (the moments in
+the flax layout, as the parameters), and in its ``__meta__`` the global
+step, the epoch and the schedule's position. Resume reads ``last`` only,
+so ``best`` has no training state. Both files of ``last`` are written
+atomically, and the step in the two metas must agree (a pair from two
+saves is refused).
+The JAX package's orbax directories have no counterpart.
 
 ``state_dict_from_jax`` maps the flax parameter paths onto the port's
 module names: ``params/<module path>/conv/kernel`` (HWIO) becomes
@@ -25,7 +34,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,35 +75,49 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]
             parts = parts[1:]
         *mods, leaf = parts
         a = np.asarray(arr)
-        if leaf == "kernel" and a.ndim == 4:        # conv HWIO -> OIHW
-            a = a.transpose(3, 2, 0, 1)
-        elif leaf == "kernel" and a.ndim == 2:      # dense (in,out)->(out,in)
-            a = a.T
-        elif leaf != "bias":
+        if not (leaf == "bias" or (leaf == "kernel" and a.ndim in (2, 4))):
             raise KeyError(f"unexpected parameter {key!r}")
         name = ".".join(mods + ["weight" if leaf == "kernel" else "bias"])
+        if leaf == "kernel":
+            a = _from_flax(a)
         out[name] = torch.from_numpy(np.array(a, order="C", copy=True))
     return out
+
+
+def _flax_key(name: str) -> str:
+    """The flax parameter path (``params/...``) of a state-dict name."""
+    *mods, leaf = name.split(".")
+    if leaf not in ("weight", "bias"):
+        raise KeyError(f"unexpected parameter {name!r}")
+    return "/".join(["params", *mods,
+                     "kernel" if leaf == "weight" else "bias"])
+
+
+def _to_flax(a: np.ndarray) -> np.ndarray:
+    """A parameter-shaped array from the PyTorch layout to flax's."""
+    if a.ndim == 4:                                 # conv OIHW -> HWIO
+        a = a.transpose(2, 3, 1, 0)
+    elif a.ndim == 2:                               # dense (out,in)->(in,out)
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
+def _from_flax(a: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_flax``."""
+    if a.ndim == 4:                                 # conv HWIO -> OIHW
+        return a.transpose(3, 2, 0, 1)
+    if a.ndim == 2:                                 # dense (in,out)->(out,in)
+        return a.T
+    return a
 
 
 def jax_from_state_dict(state: Dict[str, torch.Tensor]
                         ) -> Dict[str, np.ndarray]:
     """PyTorch state-dict entries -> flax parameter paths (``params/...``,
     fp32 numpy): the inverse of ``state_dict_from_jax``."""
-    out = {}
-    for name, t in state.items():
-        *mods, leaf = name.split(".")
-        a = t.detach().to("cpu", torch.float32).numpy()
-        if leaf == "weight" and a.ndim == 4:        # conv OIHW -> HWIO
-            a = a.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and a.ndim == 2:      # dense (out,in)->(in,out)
-            a = a.T
-        elif leaf != "bias":
-            raise KeyError(f"unexpected parameter {name!r}")
-        key = "/".join(["params", *mods,
-                        "kernel" if leaf == "weight" else "bias"])
-        out[key] = np.ascontiguousarray(a)
-    return out
+    return {_flax_key(name): _to_flax(t.detach().to("cpu",
+                                                    torch.float32).numpy())
+            for name, t in state.items()}
 
 
 def seeded_params(net: torch.nn.Module, seed: int
@@ -116,34 +139,128 @@ def seeded_params(net: torch.nn.Module, seed: int
     return out
 
 
-def save_params_npz(path, net: torch.nn.Module, meta: dict) -> None:
-    """Write ``net``'s parameters (fp32, raw) and ``meta`` as a compact
-    export, atomically (a temporary file, then a rename)."""
-    path = Path(path)
+def _save_npz(path: Path, meta: dict, arrays: dict) -> None:
+    """``arrays`` and ``meta`` as an npz, atomically (a temporary file,
+    then a rename)."""
     tmp = path.with_name(path.name + ".tmp.npz")
-    np.savez(tmp, __meta__=np.str_(json.dumps(meta)),
-             **jax_from_state_dict(net.state_dict()))
+    np.savez(tmp, __meta__=np.str_(json.dumps(meta)), **arrays)
     os.replace(tmp, path)
 
 
+def save_params_npz(path, net: torch.nn.Module, meta: dict) -> None:
+    """Write ``net``'s parameters (fp32, raw) and ``meta`` as a compact
+    export, atomically."""
+    _save_npz(Path(path), meta, jax_from_state_dict(net.state_dict()))
+
+
+ADAM_KEYS = ("exp_avg", "exp_avg_sq", "step")
+TRAIN_STATE = ".train_state.npz"
+
+
+def optimizer_arrays(net: torch.nn.Module, optimizer: torch.optim.Adam
+                     ) -> Dict[str, np.ndarray]:
+    """Adam's state of each of ``net``'s parameters as float32 arrays
+    under ``<exp_avg|exp_avg_sq|step>:<flax path>`` (a parameter Adam has
+    not updated yet has none)."""
+    out = {}
+    for name, p in net.named_parameters():
+        st = optimizer.state.get(p)
+        if not st:
+            continue
+        key = _flax_key(name)
+        for k in ADAM_KEYS:
+            a = st[k].detach().to("cpu", torch.float32).numpy()
+            out[f"{k}:{key}"] = _to_flax(a) if k != "step" else a
+    return out
+
+
+def load_optimizer_arrays(net: torch.nn.Module, optimizer: torch.optim.Adam,
+                          arrays: Dict[str, np.ndarray]) -> None:
+    """Put ``optimizer_arrays``' output back into ``optimizer`` (built over
+    ``net.parameters()``), through ``Adam.load_state_dict``."""
+    names = {_flax_key(n): p for n, p in net.named_parameters()}
+    stray = {k.split(":", 1)[1] for k in arrays} - set(names)
+    if stray:
+        raise KeyError(f"optimizer state for unknown parameters "
+                       f"{sorted(stray)}")
+    sd = optimizer.state_dict()
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    state = {}
+    for key, p in names.items():
+        if f"step:{key}" not in arrays:
+            continue
+        st = {}
+        for k in ADAM_KEYS:
+            a = np.asarray(arrays[f"{k}:{key}"], np.float32)
+            st[k] = (torch.tensor(float(a), dtype=torch.float32)
+                     if k == "step" else
+                     torch.from_numpy(np.ascontiguousarray(_from_flax(a))))
+        state[index[id(p)]] = st
+    sd["state"] = state
+    optimizer.load_state_dict(sd)
+
+
 class CheckpointManager:
-    """``last.npz`` after every validation, ``best.npz`` when val_loss
-    improves (the reference's ModelCheckpoint: monitor val/loss,
-    save_top_k=1, save_last)."""
+    """``last`` after every validation, ``best`` when val_loss improves
+    (the reference's ModelCheckpoint: monitor val/loss, save_top_k=1,
+    save_last), each as ``<tag>.npz`` (parameters); when the trainer
+    passes its optimizer, ``last.train_state.npz`` beside ``last``."""
 
     def __init__(self, directory: str):
         self.dir = Path(directory).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
         self.best_loss = np.inf
         best = self.dir / "best.npz"
         if best.exists():
             self.best_loss = load_params_npz(str(best))[1]["val_loss"]
 
     def save(self, net: torch.nn.Module, *, step: int, val_loss: float,
-             config: dict, epoch: int = -1) -> None:
+             config: dict, epoch: int = -1,
+             optimizer: Optional[torch.optim.Adam] = None,
+             scheduler=None) -> None:
+        """Write ``last`` (and ``best`` if ``val_loss`` improved); with
+        ``optimizer`` (and its ``scheduler``) also their training state
+        beside ``last``."""
+        self.dir.mkdir(parents=True, exist_ok=True)
         meta = {"step": int(step), "epoch": int(epoch),
                 "val_loss": float(val_loss), "config": config}
         save_params_npz(self.dir / "last.npz", net, meta)
+        if optimizer is not None:
+            _save_npz(self.dir / f"last{TRAIN_STATE}",
+                      {"step": int(step), "epoch": int(epoch),
+                       "scheduler_last_epoch": int(scheduler.last_epoch)},
+                      optimizer_arrays(net, optimizer))
         if val_loss < self.best_loss:
             self.best_loss = float(val_loss)
             save_params_npz(self.dir / "best.npz", net, meta)
+
+    def restore(self) -> Tuple[Dict[str, np.ndarray], dict, dict, dict]:
+        """(flat params, their meta, Adam's arrays, the training state's
+        meta) of ``last``. Raises ``FileNotFoundError`` naming the path if
+        either file is missing, and ``ValueError`` if their steps
+        differ."""
+        path = self.dir / f"last{TRAIN_STATE}"
+        if not path.exists():
+            raise FileNotFoundError(
+                f"{path}: no training state to resume from (a checkpoint "
+                f"directory of the port's trainer holds last.npz and "
+                f"last{TRAIN_STATE})")
+        flat, meta = load_params_npz(str(self.dir / "last.npz"))
+        arrays, state_meta = load_params_npz(str(path))
+        if state_meta["step"] != meta["step"]:
+            raise ValueError(f"{self.dir}: last.npz is at step "
+                             f"{meta['step']}, last{TRAIN_STATE} at step "
+                             f"{state_meta['step']}")
+        return flat, meta, arrays, state_meta
+
+
+def load_params(ckpt_path: str) -> Tuple[Dict[str, np.ndarray], dict]:
+    """(flat params, meta) from a ``.npz`` export, a checkpoint directory
+    (its ``best.npz``), or a checkpoint's ``best``/``last`` named without
+    its suffix; as ``tpu_diinn/train/checkpoint.load_params``."""
+    p = Path(ckpt_path)
+    if p.suffix == ".npz":
+        return load_params_npz(str(p))
+    if p.is_dir():
+        return load_params_npz(str(p / "best.npz"))
+    return load_params_npz(str(p.with_name(p.name + ".npz")))

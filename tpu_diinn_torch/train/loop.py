@@ -8,7 +8,10 @@ is forward, multi-scale L1, backward (through the fused decoder's backward
 kernels on a card), the global gradient norm and one Adam update, with
 the learning rate keyed on the global step. Each epoch ends with a
 full-image validation (loss and div2k-protocol PSNR per scale) and the
-best/last checkpoints. Data parallelism, resuming and profiling are not
+best/last checkpoints, each with the training state beside it; a run
+resumes from one (``trainer.resume``), traces a window of steps
+(``trainer.profile_dir``) or raises on a non-finite value
+(``trainer.debug_nans``) as the JAX trainer does. Data parallelism is not
 ported yet (ROADMAP).
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
@@ -21,6 +24,7 @@ the float32 target is float32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Optional
@@ -33,10 +37,12 @@ from tpu_diinn_torch.data import datasets as ds
 from tpu_diinn_torch.data import pipeline
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import metrics as M
+from tpu_diinn_torch.train import profiling
 from tpu_diinn_torch.train.checkpoint import (CheckpointManager,
+                                              load_optimizer_arrays,
                                               state_dict_from_jax)
 from tpu_diinn_torch.train.logging import MetricsLogger
-from tpu_diinn_torch.train.optim import make_optimizer
+from tpu_diinn_torch.train.optim import make_optimizer, restore_schedule
 from tpu_diinn_torch.train.task import SRTask
 
 
@@ -88,22 +94,44 @@ def apply_update(state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(state: TrainState):
+def make_train_step(state: TrainState, debug_nans: bool = False):
     """``step(batch) -> {"loss", "grad_norm"}`` (device scalars) for a
     batch {scale: (lr, hr)} of tensors on the net's device. The norm is
-    taken over every parameter's gradient, as ``optax.global_norm``."""
+    taken over every parameter's gradient, as ``optax.global_norm``. With
+    ``debug_nans`` a non-finite loss raises ``FloatingPointError`` before
+    the backward and a non-finite gradient norm before the update (each
+    check waits for the card); run the step under
+    ``profiling.enable_debug_nans`` to have autograd name the operation
+    whose gradient is not finite."""
     params = list(state.task.net.parameters())
 
     def step(batch) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
         loss = state.task.train_loss(batch)
+        if debug_nans:
+            profiling.check_finite(state.step + 1, loss=loss)
         loss.backward()
         gnorm = torch.stack([p.grad.square().sum() for p in params
                              if p.grad is not None]).sum().sqrt()
+        if debug_nans:
+            profiling.check_finite(state.step + 1, grad_norm=gnorm)
         apply_update(state)
         return {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step
+
+
+def restore_state(state: TrainState, ckpt_dir: str) -> dict:
+    """Put ``state`` (from ``init_state``) at the ``last`` checkpoint of
+    ``ckpt_dir``: the parameters, Adam's state, the global step and the
+    learning rate schedule at that step. Returns the checkpoint's meta."""
+    flat, meta, arrays, state_meta = CheckpointManager(ckpt_dir).restore()
+    net = state.task.net
+    net.load_state_dict(state_dict_from_jax(flat), strict=True)
+    load_optimizer_arrays(net, state.optimizer, arrays)
+    restore_schedule(state.scheduler, state_meta["scheduler_last_epoch"])
+    state.step = int(meta["step"])
+    return meta
 
 
 def to_device(batch, device) -> Dict[float, tuple]:
@@ -233,51 +261,71 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
     """The epoch loop: ``max_epochs`` epochs (or until ``max_steps``
     global steps, which ends the epoch early), each followed by validation
     and the best/last checkpoints when ``check_val_every_n_epoch``
-    divides it."""
+    divides it. ``trainer.resume`` continues the ``last`` checkpoint of
+    that directory at the epoch after its own, to the same
+    ``max_epochs``; ``trainer.profile_dir`` traces ``profile_steps`` steps
+    after two warm-up steps; ``trainer.debug_nans`` raises on a
+    non-finite loss or gradient."""
     tr = cfg.trainer
-    for key in ("resume", "profile_dir"):
-        if getattr(tr, key):
-            raise NotImplementedError(f"trainer.{key}: not ported yet "
-                                      f"(ROADMAP)")
-    if tr.debug_nans:
-        raise NotImplementedError("trainer.debug_nans: not ported yet "
-                                  "(ROADMAP)")
     logger = MetricsLogger(tr.log_dir, stdout=log_fn is None)
+    log_fn = log_fn or print
     d = cfg.data
     train_ds, val_ds = make_datasets(cfg)
     steps_per_epoch = max(1, (len(train_ds) * d.trainsets_repeat)
                           // d.batch_size)
     state = init_state(cfg, steps_per_epoch, device=device)
     ckpt = CheckpointManager(tr.ckpt_dir)
-    step_fn = make_train_step(state)
+    start_epoch = 0
+    if tr.resume:
+        # checkpoints are written after the epoch's validation: continue
+        # at the next epoch, to the same configured total (the schedule
+        # keys on the restored step, so data order and schedule agree)
+        meta = restore_state(state, tr.resume)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        log_fn(f"resumed from {tr.resume} @ step {meta['step']}, "
+               f"epoch {start_epoch}")
+    step_fn = make_train_step(state, debug_nans=tr.debug_nans)
     first_step = state.step
+    prof = (profiling.StepProfiler(tr.profile_dir, tr.profile_steps,
+                                   first_step) if tr.profile_dir else None)
     t0 = time.time()
-    for epoch in range(tr.max_epochs):
-        if max_steps is not None and state.step >= max_steps:
-            break
-        losses = []
-        for batch in pipeline.train_batches(
-                train_ds, batch_size=d.batch_size, epoch=epoch,
-                seed=cfg.seed, repeat=d.trainsets_repeat,
-                num_workers=d.num_workers):
-            m = step_fn(to_device(batch, device))
-            losses.append(m["loss"])
-            if state.step % tr.log_every_n_steps == 0:
-                logger.log(state.step, {"train_loss": float(m["loss"]),
-                                        "grad_norm": float(m["grad_norm"])},
-                           epoch=epoch)
+    with contextlib.ExitStack() as stack:
+        if tr.debug_nans:
+            stack.enter_context(profiling.enable_debug_nans(True))
+        if prof is not None:
+            stack.callback(prof.close)
+        for epoch in range(start_epoch, tr.max_epochs):
             if max_steps is not None and state.step >= max_steps:
                 break
-        if (epoch + 1) % tr.check_val_every_n_epoch == 0:
-            vm = validate(state.task, val_ds,
-                          max_images=tr.limit_val_images, device=device)
-            vm["train_loss"] = (float(torch.stack(losses).mean())
-                                if losses else float("nan"))
-            vm["steps_per_s"] = ((state.step - first_step)
-                                 / max(time.time() - t0, 1e-9))
-            logger.log(state.step, vm, epoch=epoch)
-            ckpt.save(state.task.net, step=state.step,
-                      val_loss=vm["val_loss"], config=to_dict(cfg),
-                      epoch=epoch)
+            losses = []
+            for batch in pipeline.train_batches(
+                    train_ds, batch_size=d.batch_size, epoch=epoch,
+                    seed=cfg.seed, repeat=d.trainsets_repeat,
+                    num_workers=d.num_workers):
+                with (prof.annotate(state.step + 1) if prof
+                      else contextlib.nullcontext()):
+                    m = step_fn(to_device(batch, device))
+                if prof:
+                    prof.after_step(state.step)
+                losses.append(m["loss"])
+                if state.step % tr.log_every_n_steps == 0:
+                    logger.log(state.step,
+                               {"train_loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"])},
+                               epoch=epoch)
+                if max_steps is not None and state.step >= max_steps:
+                    break
+            if (epoch + 1) % tr.check_val_every_n_epoch == 0:
+                vm = validate(state.task, val_ds,
+                              max_images=tr.limit_val_images, device=device)
+                vm["train_loss"] = (float(torch.stack(losses).mean())
+                                    if losses else float("nan"))
+                vm["steps_per_s"] = ((state.step - first_step)
+                                     / max(time.time() - t0, 1e-9))
+                logger.log(state.step, vm, epoch=epoch)
+                ckpt.save(state.task.net, step=state.step,
+                          val_loss=vm["val_loss"], config=to_dict(cfg),
+                          epoch=epoch, optimizer=state.optimizer,
+                          scheduler=state.scheduler)
     logger.close()
     return state

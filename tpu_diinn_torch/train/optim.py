@@ -41,3 +41,16 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
                                             lr_step_epochs, lr_gamma,
                                             max_epochs))
     return opt, sched
+
+
+def restore_schedule(scheduler: LambdaLR, step: int) -> None:
+    """Put ``scheduler`` at global step ``step`` and its optimizer's rate
+    at that step's, as ``step`` calls of ``scheduler.step()`` after its
+    construction would (a resumed run keys the schedule on the restored
+    step)."""
+    scheduler.last_epoch = step
+    lrs = [base * fn(step) for base, fn in zip(scheduler.base_lrs,
+                                               scheduler.lr_lambdas)]
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    scheduler._last_lr = lrs

@@ -1,0 +1,46 @@
+"""Out-of-core decoding of arbitrarily large HR outputs.
+
+Counterpart of ``tpu_diinn/train/streaming.py``: ``predict_streaming``
+runs the encoder once, then decodes fixed-height row bands on the device
+and copies each band into one host array, so the device holds the LR
+features and one band, whatever the size of the output (the reference's
+demo2 outputs at x20 and beyond). The stacked LR conv of the fused decoder
+runs once per image, not once per band (the JAX package recomputes it for
+every band; the arithmetic is the same), and each band builds only its
+own synthesis grid and index vectors. The JAX package's query-sharded band
+decode under a mesh waits for the data-parallel port (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tpu_diinn_torch.nn.diinn import DIINN
+from tpu_diinn_torch.train.task import denormalize, normalize
+
+
+@torch.inference_mode()
+def predict_streaming(net: DIINN, lr, size: Tuple[int, int], *,
+                      band_rows: int = 512) -> np.ndarray:
+    """[0, 1] LR image (B, h, w, 3), numpy or a tensor -> [0, 1] HR image
+    of ``size`` as a float32 numpy array, decoded on ``net``'s device in
+    bands of ``band_rows`` rows over the full width. Each band takes the
+    decoder's window route (``ImplicitDecoder.windows``): the window
+    kernel on the fused configuration at every ratio, the eager decode
+    otherwise."""
+    if not isinstance(net, DIINN):
+        raise TypeError(f"predict_streaming decodes DIINN, got "
+                        f"{type(net).__name__}")
+    device = next(net.parameters()).device
+    x = normalize(torch.as_tensor(lr, dtype=torch.float32, device=device))
+    window = net.decoder.windows(net.encoder(x), size)
+    h_out, w_out = size
+    out = np.empty((x.shape[0], h_out, w_out, 3), np.float32)
+    for lo in range(0, h_out, band_rows):
+        hi = min(lo + band_rows, h_out)
+        y = torch.clamp(denormalize(window(lo, hi, 0, w_out)), 0.0, 1.0)
+        out[:, lo:hi] = y.float().cpu().numpy()
+    return out
