@@ -151,6 +151,31 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    f. ``debug_nans``: two flagship steps with it give the losses of two
       without it, bit for bit (both with cuDNN's deterministic
       algorithms), and a NaN decoder weight raises ``FloatingPointError``;
+9. the native loader and the parallel layer, each path with the launch
+   counts set to 0 before it and read after it:
+   a. the native loader (``native/loader.py``): whether it built, with
+      its build seconds or its error; required where ``/usr/include/
+      png.h`` and ``jpeglib.h`` both exist. Where it built: its samples
+      against the Python path at the JAX package's tolerances, the
+      flagship trainer's host wait per step on the numpy path beside 5b's
+      and 5d's on the native one, and ``cli.demo sr`` of a committed JPEG;
+      where it did not, the demo must refuse the JPEG with its error;
+   b. ``cli.train`` as rank 0 of a 1-rank NCCL group (torchrun's
+      environment) for 5 flagship steps: losses and parameters bit-equal
+      to the plain trainer's, both under cuDNN's deterministic
+      algorithms, with both runs' step ms;
+   c. the stripes of query sharding, called stripe by stripe:
+      ``decode_stripe`` of the flagship weights on Set5 x3.14 and at a
+      width of 253 in 2, 3, 8 and 64 stripes (the overhang repeating the
+      last column; 4-column stripes), the gathered stripes bit-equal to
+      one window; and the flagship step emulated in 2 and 5 stripes
+      (``SRTask.stripe_loss``), its loss and gradient norm within phase
+      5a's step-1 bounds of the unsharded step; ``decode_window_fwd`` and
+      ``decode_window_bwd`` launched once a stripe, with their ms;
+   d. two ranks sharing the card over gloo (collectives staged through
+      the host), ``cli.train`` for 2 flagship steps at ``mesh_data=2`` and
+      at ``mesh_space=2``: rank 0's parameters within rtol 1e-4, atol
+      1e-5 of one rank's; NCCL across cards is not measured (one card);
 7. a ``kernels`` JSON line (each row with its times at every training
    shape under ``train_shapes``, the forwards' eval shapes under
    ``eval_shapes``; the bf16 instances as rows of their own, ``dtype``
@@ -165,9 +190,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -184,10 +211,12 @@ from tpu_diinn_torch.cli import train as train_cli
 from tpu_diinn_torch.config.config import load_config
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import _SIN_COEFFS
-from tpu_diinn_torch.core.resize import resize_np
+from tpu_diinn_torch.core.resize import resize_by_scale_size, resize_np
 from tpu_diinn_torch.data import pipeline
 from tpu_diinn_torch.data.png import read_png
 from tpu_diinn_torch.kernels import build
+from tpu_diinn_torch.native import loader as native_loader
+from tpu_diinn_torch.parallel import launch, sharding
 from tpu_diinn_torch.kernels import decoder_fused as K
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops, loop, profiling
@@ -263,6 +292,14 @@ X20_STREAM_LINE = ("[streaming decode: est 0.90 GB > budget 0.60 GB, "
                    "band_rows=32]")
 X20_BANDS, X20_CHUNKS = 160, 1024
 RUNTIME_ITERS = 20         # phase 8c: timed calls, after 2 warm-up calls
+JPEG = "tpu_diinn_torch/testdata/set5_img0000_q90.jpg"   # Set5 img0000
+LOADER_HEADERS = ("/usr/include/png.h", "/usr/include/jpeglib.h")
+RANK1_STEPS = 5            # phase 9b
+STRIPE_SPACES = (2, 3, 8, 64)      # phase 9c: stripes of the eval decode
+STRIPE_STEP_SPACES = (2, 5)        # phase 9c: the emulated sharded step
+STRIPE_WIDTH = 253                 # phase 9c: a width no space divides
+GLOO_STEPS = 2             # phase 9d
+HOST_WAIT_MS: dict = {}    # phases 5b and 5d: the host's wait per step
 
 
 def phase(label: str, t_start: float, **fields) -> None:
@@ -925,8 +962,8 @@ def max_delta(results: dict, other: dict) -> float:
 
 def first_batches(cfg, n: int) -> tuple:
     """The first ``n`` training batches of epoch 0 of ``cfg``'s data (host
-    numpy), and the steps per epoch."""
-    train_ds, _ = loop.make_datasets(cfg)
+    numpy, on the numpy path the oracles read), and the steps per epoch."""
+    train_ds, _ = loop.make_datasets(cfg, use_native=False)
     it = pipeline.train_batches(
         train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
         repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
@@ -1118,6 +1155,9 @@ def train_slice(t, bf16: bool = False) -> dict:
     fwd_ms = float(np.sum(per["fwd"][3:]) / (n - 1))
     bwd_ms = float(np.sum(per["bwd"][3:]) / (n - 1))
     opt_ms = float(np.mean(per["optimizer"][steady]))
+    HOST_WAIT_MS["bfloat16" if bf16 else "float32"] = {
+        "host_wait_for_batch": float(np.mean(host_gaps[1:])) * 1e3,
+        "step": step_ms}
     phase("slice_train_bf16" if bf16 else "slice_train", t,
           steps=state.step, launches=counts,
           train_loss=val["train_loss"], val_loss=val["val_loss"],
@@ -1980,6 +2020,421 @@ def debug_nans(dev, t) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the native loader and the parallel layer.
+# ---------------------------------------------------------------------------
+
+def native_loader_phase(t) -> dict:
+    """Phase 9a. Whether the native loader built (g++ with libpng and
+    libjpeg; its error if not), required where this machine has both
+    headers. Where it built: decode, resize, ``sample_patch`` and DIV2K
+    dataset samples against the Python path at the JAX package's
+    tolerances (exact, 1e-4, 1e-6, 1e-5); the flagship trainer's host wait
+    for the next batch over 20 steps on the numpy path
+    (``make_datasets(use_native=False)``), fp32 and bf16, beside phases 5b
+    and 5d's on the native path; and ``cli.demo sr`` of a JPEG made from
+    Set5's img0000, its PNG read back equal to the truncated uint8 of its
+    prediction. Where it did not build: phases 5b and 5d took the numpy
+    path, and the demo must refuse the JPEG with the build's error."""
+    headers = {h: Path(h).exists() for h in LOADER_HEADERS}
+    t0 = time.perf_counter()
+    ok = native_loader.available()
+    out = {"available": ok, "headers": headers,
+           "build_seconds": native_loader.build_seconds,
+           "build_error": native_loader.build_error(),
+           "load_seconds": time.perf_counter() - t0}
+    if all(headers.values()) and not ok:
+        raise AssertionError(f"the native loader did not build on a machine "
+                             f"with its headers: {out['build_error']}")
+    waits = {"native" if ok else "numpy": dict(HOST_WAIT_MS)}
+    jpg_out = WORK / "demo_jpeg"
+    demo_args = ["sr", "--lr_path", JPEG, "--output_size", "512", "512",
+                 "--ckpt_path", WEIGHTS, "--out_dir", str(jpg_out)]
+    K.reset_launches()
+    if ok:
+        errs = {}
+        for p in (DEMO_IMAGE, "data/DIV2K/DIV2K_train_HR/0001.png"):
+            img = native_loader.decode_image(p)
+            if not np.array_equal(img, read_png(p)):
+                raise AssertionError(f"decode_image({p}) != read_png")
+        img = native_loader.decode_image(DEMO_IMAGE).astype(np.float32)
+        errs["resize"] = float(np.abs(native_loader.resize_bicubic(
+            img, (97, 61)) - resize_np(img, (97, 61))).max())
+        img8 = read_png(DEMO_IMAGE)
+        lr, hr = native_loader.sample_patch(img8, 7, 30, 144, 48, True,
+                                            False, True)
+        crop = img8[7:151, 30:174].astype(np.float32)
+        want_lr = np.transpose(resize_np(crop, (48, 48))[::-1], (1, 0, 2))
+        errs["sample_patch"] = max(
+            float(np.abs(lr - want_lr / 255.0).max()),
+            float(np.abs(hr - np.transpose(crop[::-1], (1, 0, 2))
+                         / 255.0).max()))
+        from tpu_diinn_torch.data import datasets as ds
+        kw = dict(root="data", name="DIV2K", scales=[2, 3, 4],
+                  patch_size=48)
+        a = ds.SRDatasetDownsample(use_native=True, **kw)
+        b = ds.SRDatasetDownsample(use_native=False, **kw)
+        errs["dataset"] = max(
+            float(np.abs(x[k] - y[k]).max())
+            for i in (0, 17, 101)
+            for x, y in zip(a.sample(i, np.random.default_rng(i)).values(),
+                            b.sample(i, np.random.default_rng(i)).values())
+            for k in (0, 1))
+        bounds = {"resize": 1e-4, "sample_patch": 1e-6, "dataset": 1e-5}
+        bad = {k: v for k, v in errs.items() if not v <= bounds[k]}
+        if bad:
+            raise AssertionError(f"native vs Python path: {bad} > {bounds}")
+        out["max_abs_err"] = errs
+        numpy_path = functools.partial(loop.make_datasets, use_native=False)
+        waits["numpy"] = {}
+        with patched(loop, "make_datasets", lambda fn: numpy_path):
+            for dt, extra in (("float32", []),
+                              ("bfloat16", ["model.dtype=bfloat16"])):
+                *_, per, gaps = timed_train_cli(
+                    ["--max-steps", str(TRAIN_STEPS),
+                     "trainer.limit_val_images=2", *extra],
+                    f"train_numpy_{dt}")
+                waits["numpy"][dt] = {
+                    "host_wait_for_batch": float(np.mean(gaps[1:])) * 1e3,
+                    "step": float(np.mean(per["step"][1:]))}
+        written = demo.main(demo_args)
+        (path, pred), = written.items()
+        back = read_png(path)
+        q = (torch.clamp(torch.as_tensor(pred)[0], 0, 1) * 255).to(
+            torch.uint8).numpy()
+        if back.shape != (512, 512, 3) or not np.array_equal(back, q):
+            raise AssertionError("the JPEG demo's PNG is not its prediction")
+        out["jpeg_demo"] = {"input": JPEG, "output": path}
+    else:
+        try:
+            demo.main(demo_args)
+        except RuntimeError as e:
+            if "native loader unavailable" not in str(e):
+                raise
+            out["jpeg_demo"] = f"refused: {str(e)[:200]}"
+        else:
+            raise AssertionError("the demo read a JPEG without the loader")
+    counts = dict(K.launches)
+    phase("native_loader", t, host_wait_ms_per_step=waits, launches=counts,
+          **out)
+    return counts
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(port)}
+
+
+def rank1_nccl(t) -> dict:
+    """Phase 9b: ``cli.train`` at the flagship defaults for
+    ``RANK1_STEPS`` steps, plain and then as rank 0 of a 1-rank NCCL
+    process group (torchrun's environment): the NCCL run goes through the
+    mesh trainer's collectives (the loss and gradient all-reduces, the
+    epoch's barrier). Under ``cudnn_deterministic`` both runs' per-step
+    losses and final parameters must be bit-equal; with each run's step ms
+    (CUDA events, steps 2-N)."""
+    import torch.distributed as dist
+    base = ["--max-steps", str(RANK1_STEPS), "trainer.limit_val_images=1",
+            "trainer.log_every_n_steps=1"]
+    K.reset_launches()
+    runs = {}
+    with cudnn_deterministic():
+        for tag in ("plain", "nccl"):
+            env = rank_env(0, 1, launch.free_port()) if tag == "nccl" else {}
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                state, _, records, per, _ = timed_train_cli(
+                    base, f"rank1_{tag}")
+                if tag == "nccl":
+                    if not (dist.is_initialized()
+                            and dist.get_backend() == "nccl"
+                            and dist.get_world_size() == 1):
+                        raise AssertionError("no 1-rank NCCL group")
+                    dist.destroy_process_group()
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            runs[tag] = {
+                "losses": [r["train_loss"] for r in records
+                           if "grad_norm" in r],
+                "params": {k: v.detach().clone() for k, v in
+                           state.task.net.state_dict().items()},
+                "step_ms": float(np.mean(per["step"][1:]))}
+            del state
+    counts = dict(K.launches)
+    a, b = runs["plain"], runs["nccl"]
+    if len(a["losses"]) != RANK1_STEPS or a["losses"] != b["losses"]:
+        raise AssertionError(f"1-rank NCCL losses {b['losses']} != plain "
+                             f"{a['losses']}")
+    if not all(torch.equal(v, b["params"][k]) for k, v in a["params"].items()):
+        raise AssertionError(f"1-rank NCCL params differ: relative gap "
+                             f"{params_gap(a['params'], b['params'])}")
+    phase("rank1_nccl", t, losses=a["losses"], bit_equal=True,
+          step_ms={k: v["step_ms"] for k, v in runs.items()},
+          phase5b_step_ms=HOST_WAIT_MS.get("float32", {}).get("step"),
+          launches=counts)
+    return counts
+
+
+PLAIN_WINDOW = {"decode_window_fwd": lambda: K.decode_window_fwd_ref,
+                "decode_window_bwd": lambda: K.decode_window_bwd_ref}
+
+
+def shape_recorder(name: str, calls: list, inputs: dict):
+    """A wrapper of a window kernel's dispatcher that records, per call,
+    (name, (B, h, w, z's LR columns read), a pair of CUDA events), and the
+    first call's inputs of each (name, shape) in ``inputs``."""
+    def wrap(fn):
+        def call(z, syn, rows, cols, params, *args, **kwargs):
+            a, b = events()
+            a.record()
+            out = fn(z, syn, rows, cols, params, *args, **kwargs)
+            b.record()
+            key = (name, (z.shape[0], syn.shape[0], syn.shape[1],
+                          int(torch.unique(cols).numel())))
+            calls.append((*key, (a, b)))
+            g = args[:1] if name.endswith("bwd") else ()   # not slabs
+            inputs.setdefault(key, (z, syn, rows, cols, params, *g))
+            return out
+        return call
+    return wrap
+
+
+@torch.no_grad()
+def stripe_table(calls: list, inputs: dict, peaks, z_shape) -> list:
+    """Mean ms by (kernel, shape) of ``shape_recorder``'s calls, the plain
+    version's ms on the first call's inputs, and the bound of each: its
+    matmul FLOP in 3xTF32 against the bytes it must move (z's rows x the
+    stripe's LR columns, syn, the weights, the output; the backward also g
+    and dz)."""
+    h, n = HIDDEN, LAYERS
+    w_bytes = 4 * (3 * h + h + (n - 1) * 3 * h * h + h * 3 + 3)
+    groups: dict = {}
+    for name, shape, ev in calls:
+        groups.setdefault((name, shape), []).append(ev)
+    rows = []
+    for (name, (b, hh, ww, lr_cols)), evs in sorted(groups.items()):
+        args = inputs[(name, (b, hh, ww, lr_cols))]
+        plain = PLAIN_WINDOW[name]()
+        plain_ms = time_ms(lambda: plain(*args), 2)
+        nq = b * hh * ww
+        bwd = name.endswith("bwd")
+        z_bytes = b * z_shape[1] * lr_cols * h * n * 4 * (2 if bwd else 1)
+        nbytes = z_bytes + hh * ww * 12 + w_bytes + nq * 12 * (2 if bwd
+                                                              else 1)
+        flop = nq * (query_flop_bwd(h, n) if bwd else query_flop(h, n))
+        rows.append({"name": name, "shape": [b, hh, ww], "lr_cols": lr_cols,
+                     "calls": len(evs),
+                     "ms": float(np.mean([x.elapsed_time(y)
+                                          for x, y in evs])),
+                     "plain_ms": plain_ms,
+                     **{k: v for k, v in bound(flop, nbytes, peaks).items()
+                        if k != "bound_ffma_ms"}})
+    return rows
+
+
+def stripes(dev, peaks, t) -> dict:
+    """Phase 9c, the stripes of query sharding at full width, called
+    stripe by stripe in this process (``ImplicitDecoder.decode_stripe``,
+    each one ``decode_window_fwd`` over the stripe's column index vector):
+
+    - eval: the flagship weights on Set5's img0000 at x3.14 (256 x 256)
+      and at a width no space divides (256 x ``STRIPE_WIDTH``), in
+      ``STRIPE_SPACES`` stripes (64: 4-column stripes, narrower than the
+      kernels' query tile); the gathered stripes, overhang cut, must be
+      bit-equal to one window over the grid;
+    - training: the flagship step (committed weights, phase 5a's first
+      batch) emulated stripe by stripe, ``SRTask.stripe_loss`` of each of
+      ``STRIPE_STEP_SPACES`` stripes, its gradients summed: the loss and
+      the gradient norm held to the unsharded step at phase 5a's step-1
+      bounds (relative 1e-5 and 5e-4), with the largest relative gap of
+      any parameter's gradient reported.
+
+    With every stripe's device ms (CUDA events) by shape, beside its
+    bound (``stripe_table``)."""
+    flat, _ = load_params_npz(WEIGHTS)
+    net = make_net("diinn").to(dev)
+    net.load_state_dict(state_dict_from_jax(flat), strict=True)
+    hr = read_png(DEMO_IMAGE).astype(np.float32)[None] / 255.0
+    lr_size = resize_by_scale_size(hr.shape[1:3], 3.14)
+    x = normalize(torch.from_numpy(resize_np(hr[0], lr_size))[None].to(dev))
+    K.reset_launches()
+    calls, inputs = [], {}
+    eval_out = {}
+    with patched(K, "decode_window_fwd",
+                 shape_recorder("decode_window_fwd", calls, inputs)), \
+            torch.inference_mode():
+        feat = net.encoder(x)
+        for size in ((256, 256), (256, STRIPE_WIDTH)):
+            whole = net.decoder.windows(feat, size)(0, size[0],
+                                                    slice(0, size[1]))
+            for n in STRIPE_SPACES:
+                width = sharding.stripe_width(size[1], n)
+                parts = [net.decoder.decode_stripe(feat, size, s * width,
+                                                   width)
+                         for s in range(n)]
+                got = torch.cat(parts, dim=2)[:, :, :size[1]]
+                torch.cuda.synchronize()
+                if not torch.equal(got, whole):
+                    raise AssertionError(
+                        f"{n} stripes of {size} != one window: max "
+                        f"{(got - whole).abs().max().item()}")
+                eval_out[f"{size[0]}x{size[1]}/{n}"] = {
+                    "stripe_w": width, "overhang": n * width - size[1]}
+    torch.cuda.synchronize()
+    eval_counts = dict(K.launches)
+    eval_table = stripe_table(calls, inputs, peaks, feat.shape)
+    want_fwd = 2 * (1 + sum(STRIPE_SPACES))
+    if eval_counts["decode_window_fwd"] != want_fwd:
+        raise AssertionError(f"stripe eval launches {eval_counts}, "
+                             f"decode_window_fwd {want_fwd} expected")
+
+    cfg = load_config(None, [])
+    batches, spe = first_batches(cfg, 1)
+    state = loop.init_state(cfg, spe, device=dev, params=flat)
+    task = state.task
+    params = list(task.net.parameters())
+    batch = loop.to_device(batches[0], dev)
+    loss = task.train_loss(batch)
+    loss.backward()
+    want = [p.grad.detach().clone() for p in params]
+    want_norm = float(torch.stack([g.square().sum() for g in want]).sum()
+                      .sqrt())
+    K.reset_launches()
+    loss = float(loss.detach())
+    train_out = {}
+    calls, inputs = [], {}
+    with contextlib.ExitStack() as stack:
+        for name in ("decode_window_fwd", "decode_window_bwd"):
+            stack.enter_context(patched(
+                K, name, shape_recorder(name, calls, inputs)))
+        for n in STRIPE_STEP_SPACES:
+            for p in params:
+                p.grad = None
+            total = 0.0
+            for s in range(n):
+                part = task.stripe_loss(batch, s, n)
+                part.backward()
+                total += float(part.detach())
+            grads = [p.grad for p in params]
+            norm = float(torch.stack([g.square().sum() for g in grads])
+                         .sum().sqrt())
+            rel = {"loss": abs(total - loss) / loss,
+                   "grad_norm": abs(norm - want_norm) / want_norm,
+                   "max_grad_rel_gap": max(
+                       float((g - w).abs().max() / w.abs().max().clamp(
+                           min=1e-30)) for g, w in zip(grads, want))}
+            if not (rel["loss"] <= LOSS_TOL_1
+                    and rel["grad_norm"] <= NORM_TOL_1):
+                raise AssertionError(f"{n} stripes of the flagship step: "
+                                     f"{rel}")
+            train_out[n] = {"loss": total, "grad_norm": norm, **rel}
+    torch.cuda.synchronize()
+    train_counts = dict(K.launches)
+    n_calls = 3 * sum(STRIPE_STEP_SPACES)
+    if (train_counts["decode_window_fwd"] != n_calls
+            or train_counts["decode_window_bwd"] != n_calls):
+        raise AssertionError(f"stripe step launches {train_counts}, "
+                             f"{n_calls} of each window kernel expected")
+    lr_shape = (1, batches[0][2][0].shape[1])
+    phase("stripes", t, eval=eval_out, eval_launches=eval_counts,
+          eval_ms=eval_table,
+          train_unsharded={"loss": loss, "grad_norm": want_norm},
+          train=train_out, train_launches=train_counts,
+          train_ms=stripe_table(calls, inputs, peaks, lr_shape))
+    del state, task, params, want
+    torch.cuda.empty_cache()
+    return {"stripes_eval": eval_counts, "stripes_train": train_counts}
+
+
+def gloo_shared_card(t) -> dict:
+    """Phase 9d: two ranks on this one card over gloo (NCCL refuses two
+    ranks on one device; the port's collectives stage CUDA tensors through
+    the host under gloo), each ``cli.train`` at the flagship defaults for
+    ``GLOO_STEPS`` steps, at ``mesh_data=2`` and at ``mesh_data=1,
+    mesh_space=2``; rank 0's parameters held to this process's one-rank
+    run of the same steps (rtol 1e-4, atol 1e-5, as
+    ``tests/test_multihost.py``). Reports the outcome either way: a layout
+    that fails is named with its error, and fails the phase."""
+    base = ["--max-steps", str(GLOO_STEPS), "trainer.check_val_every_n_epoch"
+            "=1000", "data.num_workers=2"]
+    K.reset_launches()
+    state, *_ = run_train_cli(base, "gloo_one_rank")
+    want = {k: v.detach().cpu().numpy() for k, v in
+            state.task.net.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    counts = dict(K.launches)
+    out = {}
+    with launch.RankPool(2, device_type="cuda", backend="gloo",
+                         share_device=True, threads=4, timeout=300) as pool:
+        for tag, extra in (("data2", ["trainer.mesh_data=2"]),
+                           ("space2", ["trainer.mesh_data=1",
+                                       "trainer.mesh_space=2"])):
+            t0 = time.perf_counter()
+            res = pool.run("chip_smoke:gloo_rank_train",
+                           base + extra, str(WORK / f"gloo_{tag}"))
+            got = res[0]["params"]
+            close = all(np.allclose(got[k], want[k], rtol=1e-4, atol=1e-5)
+                        for k in want)
+            for r in res:
+                for k, v in r["launches"].items():
+                    counts[k] += v
+            out[tag] = {"params_close": close,
+                        "max_abs_err": max(float(np.abs(got[k] - want[k])
+                                                 .max()) for k in want),
+                        "step_ms_by_rank": [r["step_ms"] for r in res],
+                        "wall_seconds": time.perf_counter() - t0,
+                        "launches_by_rank": [r["launches"] for r in res]}
+            if not close:
+                raise AssertionError(f"gloo {tag}: rank 0's params differ "
+                                     f"from one rank: {out[tag]}")
+    phase("gloo_shared_card", t, ranks=2, backend="gloo", runs=out,
+          nccl_multi_card="not measured: one card on this machine",
+          launches=counts)
+    return counts
+
+
+def gloo_rank_train(args: list, out_dir: str) -> dict:
+    """One rank of phase 9d: ``cli.train`` with CUDA events around each
+    step; its kernel launches, mean step ms (steps 2-N) and (rank 0) its
+    parameters."""
+    import torch.distributed as dist
+    K.reset_launches()
+    spans = []
+
+    def timed(make):
+        def make_timed(state, **kwargs):
+            step = make(state, **kwargs)
+
+            def call(batch):
+                a, b = events()
+                a.record()
+                m = step(batch)
+                b.record()
+                spans.append((a, b))
+                return m
+            return call
+        return make_timed
+    with patched(loop, "make_train_step", timed):
+        state = train_cli.main(["--device", "cuda", *args,
+                                f"trainer.ckpt_dir={out_dir}",
+                                f"trainer.log_dir={out_dir}"])
+    torch.cuda.synchronize()
+    res = {"launches": dict(K.launches),
+           "step_ms": float(np.mean([a.elapsed_time(b)
+                                     for a, b in spans[1:]]))}
+    if dist.get_rank() == 0:
+        res["params"] = {k: v.detach().cpu().numpy() for k, v in
+                         state.task.net.state_dict().items()}
+    return res
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
         bf16_cpu_witness(argv[1])
@@ -2077,6 +2532,13 @@ def main(argv: list) -> int:
     by_path["train_resume"] = train_resume(dev, time.perf_counter())
     by_path["train_profile"] = train_profile(time.perf_counter())
     by_path["debug_nans"] = debug_nans(dev, time.perf_counter())
+    torch.cuda.empty_cache()
+
+    # 9) the native loader and the parallel layer
+    by_path["native_loader"] = native_loader_phase(time.perf_counter())
+    by_path["rank1_nccl"] = rank1_nccl(time.perf_counter())
+    by_path.update(stripes(dev, peaks, time.perf_counter()))
+    by_path["gloo_shared_card"] = gloo_shared_card(time.perf_counter())
 
     # 7) kernels line, then the device line
     kernels = []

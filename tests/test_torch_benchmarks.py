@@ -80,7 +80,9 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.compat.torch_loader", "tpu_diinn_torch.cli.demo",
         "tpu_diinn_torch.cli.runtime_bench", "tpu_diinn_torch.train.streaming",
         "tpu_diinn_torch.train.profiling", "tpu_diinn_torch.data.png",
-        "chip_smoke"]
+        "tpu_diinn_torch.native.loader", "tpu_diinn_torch.parallel.mesh",
+        "tpu_diinn_torch.parallel.sharding", "tpu_diinn_torch.parallel.launch",
+        "tests.torch_parallel_ranks", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', "

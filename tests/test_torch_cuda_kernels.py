@@ -255,6 +255,54 @@ def test_decode_window_bwd_flagship_width_matches_plain():
     _assert_bwd_close(got, K.decode_window_bwd_ref(z, syn, rows, cols, p, g))
 
 
+def _stripe_case(hidden, b, lr, out_hw, start, width, seed):
+    """A clamped column stripe of the ``out_hw`` grid, as query sharding
+    decodes it (``parallel/sharding.py``): HR columns [start, start +
+    width) with those past the last one repeating it."""
+    from tpu_diinn_torch.parallel.sharding import stripe_columns
+    dev = _device()
+    gen = torch.Generator().manual_seed(seed)
+    p = _params(hidden, 4, gen, dev)
+    z = torch.randn((b, *lr, 4 * hidden), generator=gen).to(dev)
+    hr_cols = stripe_columns(out_hw[1], start, width)
+    rows = grids.nearest_exact_indices(lr[0], out_hw[0])
+    cols = grids.nearest_exact_indices(lr[1], out_hw[1])[hr_cols]
+    ry, rx = grids.rel_coord_axes(lr, out_hw, device=dev)
+    syn = grids.syn_from_axes(ry, rx[torch.from_numpy(hr_cols).to(dev)],
+                              grids.area_ratio(lr, out_hw)).contiguous()
+    g = torch.randn((b, rows.size, cols.size, 3), generator=gen).to(dev)
+    keep = relu_margin(z, syn, rows, cols, p) > MARGIN
+    return z, syn, rows, cols, p, (g * keep[..., None]).contiguous()
+
+
+@pytest.mark.parametrize("hidden", [32, 256])
+@pytest.mark.parametrize("start,width", [(48, 8), (56, 8), (21, 3)],
+                         ids=["overhang", "past_the_edge", "narrow"])
+def test_decode_window_stripe_matches_plain(hidden, start, width):
+    """The stripes of ``decode_sharded`` and the space-sharded step: the
+    last stripe of a 53-column grid with its overhang repeating column 52
+    (and one that starts past it: all columns repeated), and a stripe of 3
+    columns, narrower than the kernels' query tile."""
+    z, syn, rows, cols, p, g = _stripe_case(hidden, 2, (16, 16), (41, 53),
+                                            start, width, hidden + start)
+    rv = K.index_vector(rows, 16, z.device)
+    cv = K.index_vector(cols, 16, z.device)
+    before = dict(K.launches)
+    got = K.decode_window_fwd(z, syn, rv, cv, p)
+    got_b = K.decode_window_bwd(z, syn, rv, cv, p, g)
+    torch.cuda.synchronize()
+    assert K.launches["decode_window_fwd"] == before["decode_window_fwd"] + 1
+    assert K.launches["decode_window_bwd"] == before["decode_window_bwd"] + 1
+    want = K.decode_window_fwd_ref(z, syn, rows, cols, p)
+    assert (got - want).abs().max().item() <= 1e-4
+    if start + width > 53:          # the repeated columns agree exactly
+        last = 53 - start if start < 53 else 0
+        for j in range(max(last, 1), width):
+            assert torch.equal(got[:, :, j], got[:, :, max(last - 1, 0)])
+    _assert_bwd_close(got_b, K.decode_window_bwd_ref(z, syn, rows, cols, p,
+                                                     g))
+
+
 def _assert_equal_calls(call):
     a = call()
     b = call()

@@ -159,9 +159,11 @@ def test_write_png_reads_back_through_pil(tmp_path):
 
 
 def test_demo_refuses_a_file_that_is_not_png(files, tmp_path):
-    path = tmp_path / "photo.jpg"
+    """Neither PNG nor JPEG (which the native loader reads:
+    ``tests/test_torch_native_loader.py``): refused with the file's name."""
+    path = tmp_path / "photo.bmp"
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
-    with pytest.raises(ValueError, match="photo.jpg"):
+    with pytest.raises(ValueError, match="photo.bmp"):
         tdemo.main(["sr", "--lr_path", str(path), "--output_size", "16",
                     "16", "--ckpt_path", str(files / "tiny.npz"),
                     "--device", "cpu", "--out_dir", str(tmp_path)])

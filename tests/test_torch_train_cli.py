@@ -56,7 +56,7 @@ def test_train_batches_match_jax_numpy_path():
     kw = dict(root=str(REPO / "data"), name="DIV2K", split="train",
               scales=[2, 3, 4], patch_size=48, augment=True)
     j = jds.SRDatasetDownsample(use_native=False, **kw)
-    t = tds.SRDatasetDownsample(**kw)
+    t = tds.SRDatasetDownsample(use_native=False, **kw)
     assert len(j) == len(t) > 0
     for epoch in (0, 1):
         args = dict(batch_size=4, epoch=epoch, seed=123, repeat=20,
@@ -80,7 +80,7 @@ def test_train_batches_in_process_match_jax_numpy_path():
     kw = dict(root=str(REPO / "data"), name="DIV2K", split="train",
               scales=[2, 3.5], patch_size=24, augment=True)
     j = jds.SRDatasetDownsample(use_native=False, **kw)
-    t = tds.SRDatasetDownsample(**kw)
+    t = tds.SRDatasetDownsample(use_native=False, **kw)
     args = dict(batch_size=3, epoch=1, seed=7, repeat=2, num_workers=0)
     jb = jpipe.train_batches(j, **args)
     tb = tpipe.train_batches(t, **args)

@@ -21,9 +21,11 @@ on`` is given (DIINN only). The output is quantized as the JAX demo's
 save does, ``(clip(x, 0, 1) * 255)`` truncated to uint8, in the
 prediction's dtype, and written by ``data/png.write_png``.
 
-Images are read by ``data/png.read_png``: 8-bit RGB or RGBA PNG only
-(the JAX demo reads any format PIL does); any other file raises with its
-name. The checkpoint's embedded config is merged after the ``key=value``
+PNG images are read by ``data/png.read_png`` (8-bit RGB or RGBA), and
+``.jpg``/``.jpeg`` files by the native loader's ``decode_image`` (libjpeg;
+it raises where the loader did not build, with the build's error; a JPEG
+that libjpeg cannot decode ends the process, ``native/loader.py``). The
+JAX demo reads any format PIL does; any other file raises with its name. The checkpoint's embedded config is merged after the ``key=value``
 overrides, so it wins over them, as in the JAX demo (ROADMAP keeps this
 order for parity). ``--model_name bicubic`` runs the bicubic baseline
 with no weights.
@@ -45,13 +47,18 @@ from tpu_diinn_torch.cli.benchmarks import resolve_device
 from tpu_diinn_torch.config.config import _merge, load_config
 from tpu_diinn_torch.core.resize import resize_by_scale_size, resize_np
 from tpu_diinn_torch.data.png import read_png, write_png
+from tpu_diinn_torch.native import loader as native_loader
 from tpu_diinn_torch.nn.diinn import DIINN
 from tpu_diinn_torch.train import loop
 from tpu_diinn_torch.train.checkpoint import load_params, state_dict_from_jax
 
 
 def _load_image(path: str) -> np.ndarray:
-    return read_png(path).astype(np.float32)[None] / 255.0
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        img = native_loader.decode_image(path)
+    else:
+        img = read_png(path)
+    return img.astype(np.float32)[None] / 255.0
 
 
 def _save_image(x, path: str) -> np.ndarray:

@@ -14,8 +14,12 @@ Counterpart of ``tpu_diinn/data/datasets.py`` on its numpy path:
 - ``SyntheticSRDataset``: deterministic random images for runs without
   DIV2K on disk.
 
-The JAX package's native C++ loader is not ported yet (ROADMAP); its
-numpy fallback, which it documents as giving identical samples, is.
+``SRDatasetDownsample(use_native=True)``, the default as in the JAX
+package, decodes, crops, downsamples and flips each training patch in the
+native C++ loader (``native/loader.py``) when it built, outside the GIL,
+drawing the same numbers in the same order; otherwise, and with
+``use_native=False``, it takes the numpy path. Both make the same samples
+(to float32 rounding of the [0, 1] scaling).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 
 from tpu_diinn_torch.core.resize import resize_by_scale_size, resize_np
 from tpu_diinn_torch.data.png import read_png
+from tpu_diinn_torch.native import loader as native_loader
 
 DATASET_DIR_STRUCTURE = {
     "DIV2K": {
@@ -88,11 +93,16 @@ def _samples(hr_img: np.ndarray, scales, patch_size: int, augment: bool,
 
 
 class SRDatasetDownsample:
-    """On-the-fly LR generation from the HR images of one directory."""
+    """On-the-fly LR generation from the HR images of one directory.
+    ``use_native``: read and sample through the native loader where it is
+    available (``native_loader.available()``, checked here, which builds
+    it at first use); ``self.native`` says whether it is used."""
 
     def __init__(self, root: str = "./data/", name: str = "DIV2K",
                  split: str = "train", scales: Sequence[float] = (2,),
-                 patch_size: int = 96, augment: bool = True):
+                 patch_size: int = 96, augment: bool = True,
+                 use_native: bool = True):
+        self.native = use_native and native_loader.available()
         self.scales = list(scales)
         self.patch_size = patch_size
         self.augment = augment
@@ -113,8 +123,23 @@ class SRDatasetDownsample:
         patches and augmentation."""
         path = self.names_hr[idx]
         name = os.path.splitext(os.path.basename(path))[0]
-        return _samples(read_png(path), self.scales, self.patch_size,
-                        self.augment, rng, name)
+        if not self.native:
+            return _samples(read_png(path), self.scales, self.patch_size,
+                            self.augment, rng, name)
+        hr_img = native_loader.decode_image(path)
+        if self.patch_size == 0:
+            return _samples(hr_img, self.scales, 0, self.augment, rng, name)
+        out: Sample = {}
+        ps = self.patch_size
+        for scale in self.scales:
+            hps = int(round(ps * scale))
+            top = int(rng.integers(0, hr_img.shape[0] - hps + 1))
+            left = int(rng.integers(0, hr_img.shape[1] - hps + 1))
+            flips = (rng.random(3) < 0.5) if self.augment else (False,) * 3
+            lr, hr = native_loader.sample_patch(hr_img, top, left, hps, ps,
+                                                *map(bool, flips))
+            out[scale] = (lr, hr, name)
+        return out
 
 
 class Subset:

@@ -17,8 +17,15 @@ for PNG unfiltering and numpy work stretched a flagship step about
 tenfold on the card. Eval samples, one image at a time between long
 decodes, are made by a small thread pool. A script that iterates
 ``train_batches`` keeps its entry point under ``if __name__ ==
-"__main__"``: spawned workers import the main module. The JAX pipeline's
-host sharding waits for the data-parallel port (ROADMAP).
+"__main__"``: spawned workers import the main module.
+
+Under data parallelism each rank loads its shard of every global batch
+(``shard_index`` of ``num_shards``), as the JAX pipeline shards by
+process: the global order is cut to a whole number of global batches
+first, so every shard yields the same number of batches, then strided.
+In the port a rank is one device, so the shard is the rank's 'data' index
+and ``num_shards`` the 'data' size: the ranks of one 'space' group load
+the same samples.
 """
 
 from __future__ import annotations
@@ -69,17 +76,23 @@ def _load_sample(job):
 
 
 def train_batches(dataset, *, batch_size: int, epoch: int, seed: int = 123,
-                  repeat: int = 1, num_workers: int = 8) -> Iterator[Batch]:
-    """Shuffled, repeated, prefetched training batches; the last partial
-    batch is dropped. ``num_workers`` worker processes make the samples;
-    they are stopped when the iterator finishes or is closed. With
-    ``num_workers=0`` the calling process makes them (the same bytes: each
-    sample's generator is its own), which spares small runs the workers'
-    start-up."""
+                  repeat: int = 1, num_workers: int = 8,
+                  shard_index: int = 0, num_shards: int = 1
+                  ) -> Iterator[Batch]:
+    """Shuffled, repeated, prefetched training batches of ``batch_size``
+    samples (this shard's part of each global batch of ``batch_size *
+    num_shards``); the last partial batch is dropped. ``num_workers``
+    worker processes make the samples; they are stopped when the iterator
+    finishes or is closed. With ``num_workers=0`` the calling process
+    makes them (the same bytes: each sample's generator is its own), which
+    spares small runs the workers' start-up."""
     n = len(dataset) * repeat
     order = np.random.default_rng(
         np.random.SeedSequence([seed, epoch])).permutation(n)
-    order = order[:(n // batch_size) * batch_size]
+    if num_shards > 1:
+        stride = num_shards * batch_size
+        order = order[:(n // stride) * stride][shard_index::num_shards]
+    order = order[:(len(order) // batch_size) * batch_size]
     jobs = [(int(g) % len(dataset), seed, epoch, int(g)) for g in order]
     if num_workers == 0:
         samples = (dataset.sample(i, _sample_rng(s, e, g))

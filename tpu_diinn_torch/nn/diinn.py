@@ -33,7 +33,8 @@ whole grid at once; otherwise ``windows`` decodes one window over the
 grid without ``bsize``, or serial column chunks of ``bsize // H_out``
 columns (the reference ``batched_step``; mode 4's window-local output
 conv depends on these chunk borders). ``windows`` is also the unit of the
-streaming decode (``train/streaming.py``).
+streaming decode (``train/streaming.py``) and of ``decode_stripe``, the
+clamped column stripe of query sharding (``parallel/sharding.py``).
 
 NHWC at every public method; NCHW inside for ``conv2d``.
 
@@ -58,6 +59,7 @@ from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import fast_sin
 from tpu_diinn_torch.kernels import decoder_fused as kern
 from tpu_diinn_torch.nn.layers import Conv, Dense, unfold3x3
+from tpu_diinn_torch.parallel.sharding import stripe_columns
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -241,47 +243,67 @@ class ImplicitDecoder(nn.Module):
         # batched_step); the LR features are computed once for all chunks
         window = self.windows(feat, size)
         chunk = w_out if bsize is None else max(1, bsize // h_out)
-        return torch.cat([window(0, h_out, lo, min(lo + chunk, w_out))
+        return torch.cat([window(0, h_out, slice(lo, min(lo + chunk, w_out)))
                           for lo in range(0, w_out, chunk)], dim=2)
 
     def windows(self, feat: torch.Tensor, size: Tuple[int, int]):
-        """``window(row_lo, row_hi, col_lo, col_hi)``: the decode of that
-        window of the ``size`` grid, the unit of chunked and streaming
-        decodes. The LR features (the stacked conv on the fused route),
-        the index vectors and the relative-coordinate vectors are computed
-        once, here; each window slices them and builds only its own
-        synthesis grid, bit-equal to the full grid's. The fused
-        route takes the window kernel at every ratio (as the JAX package's
-        ``decode_window``); mode 4's output conv is window-local."""
+        """``window(row_lo, row_hi, cols)``: the decode of rows [row_lo,
+        row_hi) at HR columns ``cols`` (a slice, or a non-decreasing
+        integer array such as a clamped stripe's) of the ``size`` grid, the
+        unit of chunked, streaming and query-sharded decodes. The LR
+        features (the stacked conv on the fused route), the index vectors
+        and the relative-coordinate vectors are computed once, here; each
+        window selects from them and builds only its own synthesis grid,
+        bit-equal to the full grid's. The fused route takes the window
+        kernel at every ratio (as the JAX package's ``decode_window``);
+        mode 4's output conv is window-local."""
         _, h_in, w_in, _ = feat.shape
         h_out, w_out = size
         rows = grids.nearest_exact_indices(h_in, h_out)
-        cols = grids.nearest_exact_indices(w_in, w_out)
+        cols_lr = grids.nearest_exact_indices(w_in, w_out)
         # built in the features' dtype, as the JAX decoder builds it
         ry, rx = grids.rel_coord_axes((h_in, w_in), size, dtype=feat.dtype,
                                       device=feat.device)
         ratio = grids.area_ratio((h_in, w_in), size)
 
-        def syn(r0, r1, c0, c1):
-            return grids.syn_from_axes(ry[r0:r1], rx[c0:c1], ratio)
+        def pick(v, cols):
+            """``v``'s entries at HR columns ``cols``: a view for a slice,
+            a gathered copy for an index array."""
+            if isinstance(cols, slice):
+                return v[cols]
+            return v[torch.as_tensor(np.asarray(cols), dtype=torch.long,
+                                     device=v.device)]
+
+        def syn(r0, r1, cols):
+            return grids.syn_from_axes(ry[r0:r1], pick(rx, cols), ratio)
         if self._fused_ok(feat):
             z = self.lr_features_stacked(feat)
             params = self._fused_params()
             # index vectors uploaded once; each window reads views of them
             rows_v = kern.index_vector(rows, h_in, feat.device)
-            cols_v = kern.index_vector(cols, w_in, feat.device)
+            cols_v = kern.index_vector(cols_lr, w_in, feat.device)
 
-            def window(r0, r1, c0, c1):
-                return kern.decode(z, syn(r0, r1, c0, c1).float(), params,
+            def window(r0, r1, cols):
+                return kern.decode(z, syn(r0, r1, cols).float(), params,
                                    rows=rows_v[r0:r1],
-                                   cols=cols_v[c0:c1]).to(z.dtype)
+                                   cols=pick(cols_v, cols)).to(z.dtype)
         else:
             zs = self.lr_features(feat)
 
-            def window(r0, r1, c0, c1):
-                return self.decode_window(zs, syn(r0, r1, c0, c1),
-                                          rows[r0:r1], cols[c0:c1])
+            def window(r0, r1, cols):
+                return self.decode_window(zs, syn(r0, r1, cols),
+                                          rows[r0:r1], cols_lr[cols])
         return window
+
+    def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
+                      col_start: int, stripe_w: int) -> torch.Tensor:
+        """Decode the ``stripe_w``-wide column stripe at ``col_start``,
+        clamped: columns past W_out repeat the last column (the unit of
+        query sharding, ``parallel/sharding.py``; the JAX
+        ``decode_stripe``). On the fused route one ``decode_window_fwd``
+        over the stripe's column index vector."""
+        return self.windows(feat, size)(
+            0, size[0], stripe_columns(size[1], col_start, stripe_w))
 
     def decode_window(self, zs: Tuple[Optional[torch.Tensor], ...],
                       syn: torch.Tensor, rows: np.ndarray, cols: np.ndarray

@@ -5,6 +5,8 @@ EDSR (conv head, residual body with a global residual) that returns the
 (B, H, W, n_feats) feature grid: the encoder of the "tiny DIINN" baseline
 configuration. ``EDSR`` adds the mean shifts and the PixelShuffle tail, at
 a fixed integer scale. NHWC in and out; NCHW inside for ``conv2d``.
+``EDSRBaseline(halo=...)`` passes the mesh axis to every conv, as the
+JAX ``halo_axis`` (``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -40,11 +42,11 @@ class EDSRBaseline(nn.Module):
 
     def __init__(self, n_resblocks: int = 16, n_feats: int = 64,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
         self.n_feats = n_feats
         _residual_body(self, n_resblocks, n_feats,
-                       dict(generator=generator, dtype=dtype))
+                       dict(generator=generator, dtype=dtype, halo=halo))
 
     @property
     def out_dim(self) -> int:

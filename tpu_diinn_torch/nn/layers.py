@@ -10,7 +10,12 @@ keys mirror the JAX parameter paths
 (``sfe1/conv/kernel`` -> ``sfe1.conv.weight``).
 
 ``Conv`` works on NCHW tensors: the models convert NHWC -> NCHW once at
-their boundary. ``Dense`` works on the last axis (NHWC). The TPU-only
+their boundary. ``Conv(halo=axis)`` is the JAX ``halo_axis``: with the
+input's rows sharded over a mesh axis (``parallel/sharding.
+sharded_encoder_apply``), a k x k conv first takes (k - 1) // 2 rows from
+each neighbouring rank (zeros at the image's border) and convolves VALID
+along H, SAME along W, so each rank's slab comes out as the unsharded
+conv's rows. ``Dense`` works on the last axis (NHWC). The TPU-only
 column-pair packed conv is not ported.
 
 Compute dtype (``dtype``), as flax's ``promote_dtype`` has it: the
@@ -31,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_diinn_torch.parallel.sharding import halo_exchange
+
 
 def _torch_default_init_(weight: torch.Tensor, bias: Optional[torch.Tensor],
                          fan_in: int,
@@ -43,16 +50,18 @@ def _torch_default_init_(weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 class Conv(nn.Module):
-    """Same-padded stride-1 2-D conv on NCHW tensors."""
+    """Same-padded stride-1 2-D conv on NCHW tensors; ``halo``: the mesh
+    axis (``parallel.mesh.Axis``) its input's rows are sharded over."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, kernel_size,
                               padding=(kernel_size - 1) // 2, bias=use_bias)
         self.dtype = dtype
+        self.halo = halo
         _torch_default_init_(self.conv.weight, self.conv.bias,
                              kernel_size * kernel_size * in_channels,
                              generator)
@@ -62,6 +71,10 @@ class Conv(nn.Module):
         an input padded by the caller)."""
         c = self.conv
         pad = c.padding if padding is None else padding
+        if self.halo is not None and padding is None and c.padding[0] > 0:
+            k = c.padding[0]
+            x = halo_exchange(x, k, self.halo, dim=2)
+            pad = (0, k)
         if self.dtype == torch.float32:
             return F.conv2d(x, c.weight, c.bias, padding=pad)
         y = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), padding=pad)
@@ -140,9 +153,9 @@ class ResBlock(nn.Module):
 
     def __init__(self, n_feats: int, kernel_size: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
-        kw = dict(generator=generator, dtype=dtype)
+        kw = dict(generator=generator, dtype=dtype, halo=halo)
         self.conv0 = Conv(n_feats, n_feats, kernel_size, **kw)
         self.conv1 = Conv(n_feats, n_feats, kernel_size, **kw)
 

@@ -26,6 +26,7 @@ from torch import nn
 
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.nn.layers import Conv, Dense
+from tpu_diinn_torch.parallel.sharding import stripe_columns
 
 _EPS_SHIFT = 1e-6
 _CLAMP = 1.0 - 1e-6
@@ -80,7 +81,30 @@ class LIIF(nn.Module):
         """Implicit decode of an LR feature grid to ``size``, in serial
         column chunks of ``bsize // H_out`` queries when ``bsize`` is
         set."""
-        b, h_in, w_in, _ = feat.shape
+        h_out, w_out = size
+        z, maps, cell = self._lookups(feat, size)
+        chunk = w_out if bsize is None else max(1, bsize // h_out)
+        outs = [self._blend(z, [(iy, ry, ix[lo:lo + chunk],
+                                 rx[lo:lo + chunk])
+                                for iy, ry, ix, rx in maps], cell)
+                for lo in range(0, w_out, chunk)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+    def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
+                      col_start: int, stripe_w: int) -> torch.Tensor:
+        """Decode the ``stripe_w``-wide column stripe at ``col_start``,
+        clamped (columns past W_out repeat the last one): the unit of
+        query sharding (``parallel/sharding.py``)."""
+        z, maps, cell = self._lookups(feat, size)
+        cols = torch.from_numpy(stripe_columns(size[1], col_start,
+                                               stripe_w)).to(feat.device)
+        return self._blend(z, [(iy, ry, ix[cols], rx[cols])
+                               for iy, ry, ix, rx in maps], cell)
+
+    def _lookups(self, feat: torch.Tensor, size: Tuple[int, int]):
+        """(the first layer's feature conv z, per corner (row index, row
+        rel, column index, column rel) on the device, the cell)."""
+        _, h_in, w_in, _ = feat.shape
         h_out, w_out = size
         dev = feat.device
         z = self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -93,12 +117,7 @@ class LIIF(nn.Module):
             maps.append(tuple(torch.from_numpy(a).to(dev)
                               for a in (iy.astype(np.int64), ry,
                                         ix.astype(np.int64), rx)))
-        chunk = w_out if bsize is None else max(1, bsize // h_out)
-        outs = [self._blend(z, [(iy, ry, ix[lo:lo + chunk],
-                                 rx[lo:lo + chunk])
-                                for iy, ry, ix, rx in maps], cell)
-                for lo in range(0, w_out, chunk)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        return z, maps, cell
 
     def _blend(self, z: torch.Tensor, per_corner: List[tuple],
                cell: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from torch import nn
 
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.nn.layers import Dense, unfold3x3
+from tpu_diinn_torch.parallel.sharding import stripe_columns
 
 
 def _axis_lookup(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -60,6 +61,27 @@ class MetaSR(nn.Module):
                bsize: Optional[int] = None) -> torch.Tensor:
         """Decode to ``size``, in serial column chunks of
         ``bsize // H_out`` queries when ``bsize`` is set."""
+        h_out, w_out = size
+        unfolded, iy, ry, ix, rx, r_rev = self._lookups(feat, size)
+        chunk = w_out if bsize is None else max(1, bsize // h_out)
+        outs = [self._pred(unfolded, iy, ry, ix[lo:lo + chunk],
+                           rx[lo:lo + chunk], r_rev)
+                for lo in range(0, w_out, chunk)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+    def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
+                      col_start: int, stripe_w: int) -> torch.Tensor:
+        """Decode the ``stripe_w``-wide column stripe at ``col_start``,
+        clamped (columns past W_out repeat the last one): the unit of
+        query sharding (``parallel/sharding.py``)."""
+        unfolded, iy, ry, ix, rx, r_rev = self._lookups(feat, size)
+        cols = torch.from_numpy(stripe_columns(size[1], col_start,
+                                               stripe_w)).to(feat.device)
+        return self._pred(unfolded, iy, ry, ix[cols], rx[cols], r_rev)
+
+    def _lookups(self, feat: torch.Tensor, size: Tuple[int, int]):
+        """(the unfolded features, the row and column index and rel-coord
+        vectors on the device, r_rev)."""
         b, h_in, w_in, c = feat.shape
         if c != self.feat_dim:
             raise ValueError(f"features have {c} channels, the hypernet "
@@ -73,11 +95,7 @@ class MetaSR(nn.Module):
             iy.astype(np.int64), ry, ix.astype(np.int64), rx))
         # r_rev = cell_h * H_in / 2, a float32 scalar
         r_rev = float(np.float32((2.0 / h_out) * h_in / 2.0))
-        chunk = w_out if bsize is None else max(1, bsize // h_out)
-        outs = [self._pred(unfolded, iy, ry, ix[lo:lo + chunk],
-                           rx[lo:lo + chunk], r_rev)
-                for lo in range(0, w_out, chunk)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        return unfolded, iy, ry, ix, rx, r_rev
 
     def _pred(self, unfolded: torch.Tensor, iy, ry, ix, rx,
               r_rev: float) -> torch.Tensor:

@@ -6,7 +6,9 @@ fusion over the concatenated block outputs, and a residual to the first
 shallow feature. Returns the (B, H, W, G0) feature grid at input resolution
 (the DIINN use; the optional PixelShuffle head is not ported). NHWC in and
 out; NCHW inside for ``conv2d``. ``dtype`` is every conv's compute dtype
-(``nn/layers.py``): with bfloat16 the features come out bf16.
+(``nn/layers.py``): with bfloat16 the features come out bf16. ``halo``
+(the JAX ``halo_axis``) reaches every conv: the encoder then runs on a
+slab of rows sharded over that mesh axis (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -31,13 +33,13 @@ class RDB(nn.Module):
 
     def __init__(self, growth0: int, growth: int, n_convs: int,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
         self.n_convs = n_convs
         for c in range(n_convs):
             self.add_module(f"conv{c}", Conv(growth0 + c * growth, growth, 3,
                                              generator=generator,
-                                             dtype=dtype))
+                                             dtype=dtype, halo=halo))
         self.lff = Conv(growth0 + n_convs * growth, growth0, 1,
                         generator=generator, dtype=dtype)
 
@@ -53,12 +55,12 @@ class RDN(nn.Module):
     def __init__(self, growth0: int = 64, config: str = "B",
                  n_colors: int = 3,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
         d, c, g = RDN_CONFIGS[config]
         self.growth0 = growth0
         self.n_blocks = d
-        kw = dict(generator=generator, dtype=dtype)
+        kw = dict(generator=generator, dtype=dtype, halo=halo)
         self.sfe1 = Conv(n_colors, growth0, 3, **kw)
         self.sfe2 = Conv(growth0, growth0, 3, **kw)
         for i in range(d):
@@ -86,7 +88,7 @@ class RDN(nn.Module):
 
 def make_rdn(*, growth0: int = 64, config: str = "B",
              generator: Optional[torch.Generator] = None,
-             dtype: torch.dtype = torch.float32) -> RDN:
+             dtype: torch.dtype = torch.float32, halo=None) -> RDN:
     """The feature extractor shared by the models: G0=64, config 'B'."""
     return RDN(growth0=growth0, config=config, generator=generator,
-               dtype=dtype)
+               dtype=dtype, halo=halo)

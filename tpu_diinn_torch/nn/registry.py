@@ -25,10 +25,12 @@ ENCODERS = {
 
 def make_encoder(spec: str, *,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32) -> nn.Module:
-    """Encoder ``spec`` with its convs computing in ``dtype``."""
+                 dtype: torch.dtype = torch.float32,
+                 halo=None) -> nn.Module:
+    """Encoder ``spec`` with its convs computing in ``dtype``; ``halo``:
+    the mesh axis its input rows are sharded over (``nn/layers.Conv``)."""
     cls, kwargs = ENCODERS[spec]
-    return cls(generator=generator, dtype=dtype, **kwargs)
+    return cls(generator=generator, dtype=dtype, halo=halo, **kwargs)
 
 
 def encoder_out_dim(spec: str) -> int:

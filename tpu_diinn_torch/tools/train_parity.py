@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0) if args.steps else torch.device("cpu")
     cfg = load_config(None, [])
-    train_ds, _ = loop.make_datasets(cfg)
+    train_ds, _ = loop.make_datasets(cfg, use_native=False)
     it = pipeline.train_batches(
         train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
         repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)

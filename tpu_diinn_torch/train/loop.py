@@ -11,8 +11,21 @@ full-image validation (loss and div2k-protocol PSNR per scale) and the
 best/last checkpoints, each with the training state beside it; a run
 resumes from one (``trainer.resume``), traces a window of steps
 (``trainer.profile_dir``) or raises on a non-finite value
-(``trainer.debug_nans``) as the JAX trainer does. Data parallelism is not
-ported yet (ROADMAP).
+(``trainer.debug_nans``) as the JAX trainer does.
+
+Under ``torch.distributed`` (``parallel/mesh.py``) the trainer lays the
+ranks out as the ('data', 'space') mesh of ``trainer.mesh_data`` x
+``trainer.mesh_space``, which must use every rank. Each rank loads its
+'data' shard of every global batch (``batch_size / data`` samples; the
+ranks of one space group load the same ones); with ``space > 1`` each
+rank decodes and takes the L1 loss over its own clamped column stripe of
+every scale's HR grid (``SRTask.stripe_loss``), the encoder and the
+stacked LR conv replicated within the space group. Each rank's loss is
+its share of the global loss, and the gradients are summed over every
+rank in one all-reduce, so the step is the unsharded step's (to fp32
+summation order). The parameters start equal on every rank (rank 0's
+are broadcast), Adam updates them alike, only rank 0 validates, logs and
+writes checkpoints, every rank restores, and a barrier ends each epoch.
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU, as the JAX package runs on its default device.
@@ -36,6 +49,7 @@ from tpu_diinn_torch.config.config import Config, to_dict
 from tpu_diinn_torch.data import datasets as ds
 from tpu_diinn_torch.data import pipeline
 from tpu_diinn_torch.nn.registry import make_net
+from tpu_diinn_torch.parallel import mesh as pmesh
 from tpu_diinn_torch.train import metrics as M
 from tpu_diinn_torch.train import profiling
 from tpu_diinn_torch.train.checkpoint import (CheckpointManager,
@@ -94,7 +108,8 @@ def apply_update(state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(state: TrainState, debug_nans: bool = False):
+def make_train_step(state: TrainState, debug_nans: bool = False,
+                    mesh: Optional[pmesh.Mesh] = None):
     """``step(batch) -> {"loss", "grad_norm"}`` (device scalars) for a
     batch {scale: (lr, hr)} of tensors on the net's device. The norm is
     taken over every parameter's gradient, as ``optax.global_norm``. With
@@ -102,21 +117,47 @@ def make_train_step(state: TrainState, debug_nans: bool = False):
     the backward and a non-finite gradient norm before the update (each
     check waits for the card); run the step under
     ``profiling.enable_debug_nans`` to have autograd name the operation
-    whose gradient is not finite."""
+    whose gradient is not finite.
+
+    Under a process group, ``mesh`` shards the step: ``batch`` is this
+    rank's 'data' shard, the rank takes its 'space' stripe's share of the
+    loss (divided by the data size), and the loss and the gradients are
+    summed over every rank, so that every rank reports and applies the
+    global loss's gradient."""
     params = list(state.task.net.parameters())
+    sharded = mesh is not None and torch.distributed.is_initialized()
+    if not sharded:
+        def local_loss(batch):
+            return state.task.train_loss(batch)
+    else:
+        def local_loss(batch):
+            if mesh.space.size > 1:
+                loss = state.task.stripe_loss(batch, mesh.space.index,
+                                              mesh.space.size)
+            else:
+                loss = state.task.train_loss(batch)
+            return loss / mesh.data.size if mesh.data.size > 1 else loss
 
     def step(batch) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss = state.task.train_loss(batch)
+        loss = local_loss(batch)
+        total = (pmesh.all_reduce_sum_(loss.detach().clone()) if sharded
+                 else loss.detach())
         if debug_nans:
-            profiling.check_finite(state.step + 1, loss=loss)
+            profiling.check_finite(state.step + 1, loss=total)
         loss.backward()
-        gnorm = torch.stack([p.grad.square().sum() for p in params
-                             if p.grad is not None]).sum().sqrt()
+        grads = [p.grad for p in params if p.grad is not None]
+        if sharded:     # one all-reduce over the flattened gradients
+            flat = pmesh.all_reduce_sum_(
+                torch.cat([g.reshape(-1) for g in grads]))
+            torch._foreach_copy_(grads, [
+                part.view_as(g) for g, part in
+                zip(grads, flat.split([g.numel() for g in grads]))])
+        gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         if debug_nans:
             profiling.check_finite(state.step + 1, grad_norm=gnorm)
         apply_update(state)
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": total, "grad_norm": gnorm}
 
     return step
 
@@ -142,28 +183,31 @@ def to_device(batch, device) -> Dict[float, tuple]:
 
 
 def _build_set(cfg: Config, name: str, split: str, *, scales,
-               patch_size: int, augment: bool):
+               patch_size: int, augment: bool, use_native: bool = True):
     """One dataset from a (name, split) config entry. DIV2K's train images
     split into ``train`` = [0:cut) and ``val`` = [cut:n), cut = 800 when
     all 900 are on disk, else 8/9 of what is (reduced copies keep a
-    disjoint divide). Benchmark sets are used whole."""
+    disjoint divide). Benchmark sets are used whole. ``use_native``: the
+    native loader where it built (``data/datasets.py``)."""
     if name == "DIV2K":
         full = ds.SRDatasetDownsample(root=cfg.data.root, name="DIV2K",
                                       split="train", scales=scales,
-                                      patch_size=patch_size, augment=augment)
+                                      patch_size=patch_size, augment=augment,
+                                      use_native=use_native)
         n = len(full)
         cut = 800 if n >= 900 else (n * 8) // 9
         return ds.Subset(full, range(0, cut) if split == "train"
                          else range(cut, n))
     return ds.SRDatasetDownsample(root=cfg.data.root, name=name, split=split,
                                   scales=scales, patch_size=patch_size,
-                                  augment=augment)
+                                  augment=augment, use_native=use_native)
 
 
-def make_datasets(cfg: Config):
+def make_datasets(cfg: Config, use_native: bool = True):
     """(train, val) from ``cfg.data``: augmented patches of every trainset
     at ``train_scales``, and full images of the first trainset's held-out
-    tail; or synthetic images."""
+    tail; or synthetic images. ``use_native=False`` keeps the numpy path
+    even where the native loader built."""
     d = cfg.data
     if d.synthetic:
         train = ds.SyntheticSRDataset(n_images=16, scales=d.train_scales,
@@ -173,11 +217,12 @@ def make_datasets(cfg: Config):
                                     seed=cfg.seed + 1, image_size=96)
         return train, val
     trains = [_build_set(cfg, name, split, scales=d.train_scales,
-                         patch_size=d.patch_size, augment=True)
+                         patch_size=d.patch_size, augment=True,
+                         use_native=use_native)
               for name, split in d.trainsets]
     train = trains[0] if len(trains) == 1 else ds.ConcatDataset(trains)
     val = _build_set(cfg, d.trainsets[0][0], "val", scales=d.train_scales,
-                     patch_size=0, augment=False)
+                     patch_size=0, augment=False, use_native=use_native)
     return train, val
 
 
@@ -265,11 +310,21 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
     that directory at the epoch after its own, to the same
     ``max_epochs``; ``trainer.profile_dir`` traces ``profile_steps`` steps
     after two warm-up steps; ``trainer.debug_nans`` raises on a
-    non-finite loss or gradient."""
+    non-finite loss or gradient. Under a process group every rank calls
+    it, on its own ``device``; ``trainer.mesh_data`` x
+    ``trainer.mesh_space`` must be the world size (ValueError otherwise,
+    one process included)."""
     tr = cfg.trainer
-    logger = MetricsLogger(tr.log_dir, stdout=log_fn is None)
-    log_fn = log_fn or print
+    mesh = pmesh.make_mesh(tr.mesh_data, tr.mesh_space)
+    lead = mesh.rank == 0
+    logger = MetricsLogger(tr.log_dir if lead else None,
+                           stdout=lead and log_fn is None)
+    log_fn = (log_fn or print) if lead else (lambda *a: None)
     d = cfg.data
+    if d.batch_size % mesh.data.size:
+        raise ValueError(f"batch_size {d.batch_size} must divide across "
+                         f"data={mesh.data.size} ranks")
+    shard_batch = d.batch_size // mesh.data.size
     train_ds, val_ds = make_datasets(cfg)
     steps_per_epoch = max(1, (len(train_ds) * d.trainsets_repeat)
                           // d.batch_size)
@@ -284,10 +339,14 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
         start_epoch = int(meta.get("epoch", -1)) + 1
         log_fn(f"resumed from {tr.resume} @ step {meta['step']}, "
                f"epoch {start_epoch}")
-    step_fn = make_train_step(state, debug_nans=tr.debug_nans)
+    if pmesh.world()[1] > 1:
+        for p in state.task.net.parameters():
+            pmesh.broadcast_(p.data)
+    step_fn = make_train_step(state, debug_nans=tr.debug_nans, mesh=mesh)
     first_step = state.step
     prof = (profiling.StepProfiler(tr.profile_dir, tr.profile_steps,
-                                   first_step) if tr.profile_dir else None)
+                                   first_step)
+            if tr.profile_dir and lead else None)
     t0 = time.time()
     with contextlib.ExitStack() as stack:
         if tr.debug_nans:
@@ -299,23 +358,25 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
                 break
             losses = []
             for batch in pipeline.train_batches(
-                    train_ds, batch_size=d.batch_size, epoch=epoch,
+                    train_ds, batch_size=shard_batch, epoch=epoch,
                     seed=cfg.seed, repeat=d.trainsets_repeat,
-                    num_workers=d.num_workers):
+                    num_workers=d.num_workers,
+                    shard_index=mesh.data.index,
+                    num_shards=mesh.data.size):
                 with (prof.annotate(state.step + 1) if prof
                       else contextlib.nullcontext()):
                     m = step_fn(to_device(batch, device))
                 if prof:
                     prof.after_step(state.step)
                 losses.append(m["loss"])
-                if state.step % tr.log_every_n_steps == 0:
+                if state.step % tr.log_every_n_steps == 0 and lead:
                     logger.log(state.step,
                                {"train_loss": float(m["loss"]),
                                 "grad_norm": float(m["grad_norm"])},
                                epoch=epoch)
                 if max_steps is not None and state.step >= max_steps:
                     break
-            if (epoch + 1) % tr.check_val_every_n_epoch == 0:
+            if (epoch + 1) % tr.check_val_every_n_epoch == 0 and lead:
                 vm = validate(state.task, val_ds,
                               max_images=tr.limit_val_images, device=device)
                 vm["train_loss"] = (float(torch.stack(losses).mean())
@@ -327,5 +388,6 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
                           val_loss=vm["val_loss"], config=to_dict(cfg),
                           epoch=epoch, optimizer=state.optimizer,
                           scheduler=state.scheduler)
+            pmesh.barrier()
     logger.close()
     return state

@@ -77,6 +77,34 @@ class SRTask:
         loss, _ = self.loss_and_preds(batch)
         return loss
 
+    def stripe_loss(self, batch: Batch, index: int,
+                    count: int) -> torch.Tensor:
+        """Column stripe ``index`` of ``count``'s share of ``train_loss``:
+        every scale's prediction decoded on that clamped stripe only
+        (``parallel/sharding.py``), and the L1 distance summed over the
+        stripe's own columns (not the repeated overhang) over the whole
+        grid's element count. The ``count`` shares add up to
+        ``train_loss`` (to fp32 rounding), and so do their gradients: the
+        unit of the space-sharded training step."""
+        from tpu_diinn_torch.parallel.sharding import (stripe_fns,
+                                                       stripe_width)
+        items = list(batch.items())
+        encode, decode_stripe = stripe_fns(self.net)
+        feats = self._shared_lr_features(items)
+        loss = 0.0
+        for i, (_, (lr, hr)) in enumerate(items):
+            b, h_out, w_out = hr.shape[:3]
+            width = stripe_width(w_out, count)
+            start = index * width
+            own = max(0, min(width, w_out - start))
+            feat = (feats[i * b:(i + 1) * b] if feats is not None
+                    else encode(normalize(lr)))
+            pred = decode_stripe(feat, (h_out, w_out), start, width)
+            y = normalize(hr[:, :, start:start + own])
+            loss = loss + (torch.abs(pred[:, :, :own] - y).sum()
+                           / hr.numel())
+        return loss / len(items)
+
     def predict(self, lr: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:
         """[0, 1] NHWC in -> [0, 1] clamped NHWC out."""
