@@ -19,7 +19,10 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    of the three (``<...,Bf16>``) must show ``HGMMA``;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
    on main-path shapes (``decode_window_fwd`` also at the x20 streaming
-   band: LR 256x256, one 32x5120 band), held against their plain PyTorch
+   band: LR 256x256, one 32x5120 band; both also at the bucketed eval's
+   padded canvases, phase 10: ``decode_int_fwd`` over LR 128² x4 and 64²
+   x8, ``decode_window_fwd``'s first row band over 128² -> 256² and 192²
+   -> 512²), held against their plain PyTorch
    versions (max abs
    error <= 1e-4: fp32-level sums in another order over K <= 512; the
    products run in 3xTF32 on the tensor cores), a second call bit for bit
@@ -52,7 +55,9 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    version's (+ 1e-5 of the largest magnitude); with ``bound_ms`` at the
    bf16 tensor-core peak;
 4. slice, eval: the flagship benchmark evaluation through the benchmark
-   CLI's ``main`` (4 sets x scales {3.14, 4, 8}); both forward kernels
+   CLI's ``main`` on the exact-shape route (``--eval_buckets 0``, as
+   phases 4b and 6a; phase 10 runs the CLI's default, bucketed route)
+   (4 sets x scales {3.14, 4, 8}); both forward kernels
    must have been launched, and all 36 metrics must match the committed
    JAX-CPU oracle (|dPSNR|, |dLR-PSNR| <= 2e-3 dB, |dSSIM| <= 1e-4: cuDNN
    and XLA-CPU sum the encoder's convolutions in different orders); CUDA
@@ -176,6 +181,35 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       the host), ``cli.train`` for 2 flagship steps at ``mesh_data=2`` and
       at ``mesh_space=2``: rank 0's parameters within rtol 1e-4, atol
       1e-5 of one rank's; NCCL across cards is not measured (one card);
+10. the bucketed static-shape eval (``train/bucketed.py``), the benchmark
+   CLI's default route: one CUDA graph a bucket, replayed for every image
+   of it; each path with the launch counts set to 0 before it and read
+   after it:
+   a. the flagship evaluation of phase 4 (fp32): the 36 metrics against
+      the JAX-CPU oracle at phase 4's bounds and each within 1e-4 of phase
+      4's own exact-shape results (the tolerance of JAX's
+      ``tests/test_bucketed.py``), 5 programs (``decode_int_fwd`` over LR
+      64² -> 256², 128² -> 512², 64² -> 512²; ``decode_window_fwd`` in row
+      bands over 128² -> 256², 192² -> 512²), every launch accounted for
+      by the warm-ups and the replays; the wall, split into the dataset
+      iteration, host prep, copy-in, capture, replay, read-back and the
+      rest, and the peak device bytes;
+   b. Set5 in bf16 against the JAX-CPU oracle of the same computation
+      (fused, interpret mode), within phase 4b's bound: JAX's bucketed
+      eval with its x3.14 programs decoded by its window kernel, as the
+      port decodes them (JAX's own CLI takes its XLA decoder there, which
+      rounds at other points in bf16; the gap to it is reported); made by
+      ``python -m tests.test_torch_bucketed --oracle-bf16 PATH``; bf16
+      instances only;
+   c. LIIF and MetaSR on Set5 against their exact-shape oracles at phase
+      6a's bounds, with their program counts; no decoder kernel runs;
+   d. each of 10a's programs replayed on its buffers and run eagerly on
+      the same buffers: the three metrics bit-equal; one more replay
+      under ``torch.profiler``, whose device records must count the
+      decoder kernels that 10a booked for a replay (an eager run's count,
+      which the wrappers see, is the control); the replay's device ms,
+      the eager run's decoder ms, and from them the decoder's seconds in
+      10a;
 7. a ``kernels`` JSON line (each row with its times at every training
    shape under ``train_shapes``, the forwards' eval shapes under
    ``eval_shapes``; the bf16 instances as rows of their own, ``dtype``
@@ -220,6 +254,7 @@ from tpu_diinn_torch.parallel import launch, sharding
 from tpu_diinn_torch.kernels import decoder_fused as K
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops, loop, profiling
+from tpu_diinn_torch.train.bucketed import _syn_traced
 from tpu_diinn_torch.train.checkpoint import (load_params_npz,
                                               seeded_params,
                                               state_dict_from_jax)
@@ -229,6 +264,8 @@ ORACLE = "tpu_diinn_torch/testdata/flagship_benchmarks_jax_cpu.json"
 TRAIN_ORACLE = "tpu_diinn_torch/testdata/flagship_train_jax_cpu.json"
 BF16_ORACLE = "tpu_diinn_torch/testdata/flagship_bf16_jax_cpu.json"
 BF16_WITNESS = "tpu_diinn_torch/testdata/flagship_bf16_port_cpu.json"
+BF16_BUCKETED_ORACLE = ("tpu_diinn_torch/testdata/"
+                        "flagship_bf16_bucketed_jax_cpu.json")
 WEIGHTS = "results/flagship_weights.npz"
 WORK = Path("build/chip_smoke")
 SOURCES = {"decode_int_fwd": "tpu_diinn_torch/csrc/decoder_fused.cu",
@@ -249,6 +286,8 @@ LOSS_TOL_1, NORM_TOL_1 = 1e-5, 5e-4   # phase 5a, step 1 (relative)
 STEP_TOL = 1e-4                       # phase 5a, steps 2-3 (relative)
 PSNR_TOL, SSIM_TOL = 2e-3, 1e-4
 N_METRICS = 36             # 4 sets x 3 scales x PSNR/SSIM/LR-PSNR
+BUCKET_TOL = 1e-4          # phase 10a against phase 4 (tests/test_bucketed)
+N_PROGRAMS = 5             # phase 10a: kernel x3, traced x2 (quantum 64)
 HIDDEN, LAYERS = 256, 4
 TRAIN_STEPS, FRACTIONAL_STEPS = 20, 5
 FAMILIES = ("liif", "metasr")
@@ -672,7 +711,9 @@ def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
                    for k, v in p.items())
     c_all = HIDDEN * LAYERS
     checks = {}
-    for h_in, s in ((64, 4), (32, 8)):
+    # exact-shape eval x4 and x8 of a 256x256 image; the bucketed eval's
+    # padded canvases LR 128 x4 (Urban100) and LR 64 x8 (every set)
+    for h_in, s in ((64, 4), (32, 8), (128, 4), (64, 8)):
         z = torch.randn((1, h_in, h_in, c_all), generator=gen).to(dev)
         syn = grids.syn_input_grid((h_in, h_in), (h_in * s, h_in * s),
                                    device=dev)
@@ -699,24 +740,41 @@ def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
         checks.setdefault("decode_int_fwd_bf16", []).append(res)
         del zb, z32, synb
     # x3.14 on a 256x256 image: LR 82x82, chunks of 30000 // 256 = 117
-    # columns (the second chunk, as the chunked eval decodes it); and the
-    # x20 streaming band of the demo's 5120x5120 output of a 256x256 image
-    # (one band of 32 rows over all columns)
-    for h_in, h_out, window, what in (
-            (82, 256, (0, 256, 117, 234), "columns 117:234"),
-            (256, 5120, (2560, 2592, 0, 5120),
-             "rows 2560:2592 (the x20 streaming band)")):
+    # columns (the second chunk, as the chunked eval decodes it); the x20
+    # streaming band of the demo's 5120x5120 output of a 256x256 image
+    # (one band of 32 rows over all columns); and the bucketed eval's
+    # first row band at x3.14 on its padded canvases (the LR features
+    # n_z^2, the HR grid n_out^2, the index vectors repeating their last
+    # true entry past the image): 82 -> 256 on 128 -> 256 (30000 // 256 =
+    # 117 rows), 130 -> 408 on 192 -> 512 (58 rows)
+    for h_in, h_out, n_z, n_out, window, what in (
+            (82, 256, 82, 256, (0, 256, 117, 234), "columns 117:234"),
+            (256, 5120, 256, 5120, (2560, 2592, 0, 5120),
+             "rows 2560:2592 (the x20 streaming band)"),
+            (82, 256, 128, 256, (0, 117, 0, 256),
+             "bucket 128 -> 256, rows 0:117 (bucketed)"),
+            (130, 408, 192, 512, (0, 58, 0, 512),
+             "bucket 192 -> 512, rows 0:58 (bucketed)")):
         r0, r1, c0, c1 = window
-        z = torch.randn((1, h_in, h_in, c_all), generator=gen).to(dev)
-        rows = grids.nearest_exact_indices(h_in, h_out)[r0:r1]
-        cols = grids.nearest_exact_indices(h_in, h_out)[c0:c1]
-        syn = grids.syn_input_grid((h_in, h_in), (h_out, h_out),
-                                   device=dev)[r0:r1, c0:c1].contiguous()
+        z = torch.randn((1, n_z, n_z, c_all), generator=gen).to(dev)
+        idx = grids.nearest_exact_indices(h_in, h_out)
+        idx = np.concatenate([idx, np.full(n_out - h_out, idx[-1],
+                                           idx.dtype)])
+        rows, cols = idx[r0:r1], idx[c0:c1]
+        if n_out == h_out:
+            syn = grids.syn_input_grid((h_in, h_in), (h_out, h_out),
+                                       device=dev)
+        else:
+            iv = [torch.tensor(v, dtype=torch.int32, device=dev)
+                  for v in (h_in, h_in, h_out, h_out)]
+            idx_v = torch.from_numpy(idx).to(dev)
+            syn = _syn_traced((n_out, n_out), (n_z, n_z), *iv, idx_v, idx_v)
+        syn = syn[r0:r1, c0:c1].contiguous()
         nq = rows.size * cols.size
         touched = np.unique(rows).size * np.unique(cols).size * c_all * 4
         idx_bytes = (rows.size + cols.size) * 4
-        rows_v = K.index_vector(rows, h_in, dev)
-        cols_v = K.index_vector(cols, h_in, dev)
+        rows_v = K.index_vector(rows, n_z, dev)
+        cols_v = K.index_vector(cols, n_z, dev)
         shape = f"LR {h_in}x{h_in} -> {h_out}x{h_out}, {what}"
         res = check_fwd(
             "decode_window_fwd",
@@ -727,8 +785,10 @@ def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
         phase("kernel", t, **res)
         checks.setdefault("decode_window_fwd", []).append(res)
         zb, pb, z32, p32 = as_bf16(z, p)
-        synb = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
-                                    device=dev)[r0:r1, c0:c1].float()
+        # the exact route builds its grid in bf16, the bucketed one in fp32
+        synb = (grids.syn_input_grid((h_in, h_in), (h_out, h_out),
+                                     dtype=BF16, device=dev)[r0:r1, c0:c1]
+                .float() if n_out == h_out else syn)
         res = check_fwd_bf16(
             "decode_window_fwd",
             lambda: K.decode_window_fwd(zb, synb, rows_v, cols_v, pb),
@@ -904,15 +964,16 @@ def masked_grad(z, syn, rows, cols, p, gen):
     return (g * keep[..., None]).contiguous(), int((~keep).sum().item())
 
 
-def eval_slice(t) -> dict:
-    """Phase 4: the flagship benchmark evaluation; returns its launches."""
+def eval_slice(t) -> tuple:
+    """Phase 4: the flagship benchmark evaluation on the exact-shape route;
+    returns its launches and its metrics."""
     spans = {name: [] for name in FWD}
     K.reset_launches()
     with contextlib.ExitStack() as stack:
         for name in FWD:
             stack.enter_context(patched(K, name, span_recorder(spans[name])))
         results = benchmarks.main(["--ckpt_path", WEIGHTS, "--device",
-                                   "cuda"])
+                                   "cuda", "--eval_buckets", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = dict(K.launches)
@@ -928,15 +989,18 @@ def eval_slice(t) -> dict:
                                 for n, v in spans.items()},
           metrics=len(deltas), max_delta_vs_oracle=deltas[worst],
           max_delta_at=worst, max_delta_vs_tpu_v5e_log_info_only=tpu_d)
-    return counts
+    return counts, results
 
 
-def hold_metrics(results: dict, oracle_path: str) -> dict:
-    """All 36 benchmark metrics of ``results`` against a committed JAX-CPU
-    oracle: |dPSNR|, |dLR-PSNR| <= PSNR_TOL dB, |dSSIM| <= SSIM_TOL.
-    Returns each metric's |d|."""
+def hold_metrics(results: dict, oracle_path: str,
+                 sets: tuple = None) -> dict:
+    """The benchmark metrics of ``results`` against a committed JAX-CPU
+    oracle, all 36 (or those of ``sets``): |dPSNR|, |dLR-PSNR| <= PSNR_TOL
+    dB, |dSSIM| <= SSIM_TOL. Returns each metric's |d|."""
     with open(oracle_path) as f:
         oracle = json.load(f)
+    if sets is not None:
+        oracle = {k: oracle[k] for k in sets}
     deltas = {}
     for set_name, metrics in oracle.items():
         for key, want in metrics.items():
@@ -947,8 +1011,9 @@ def hold_metrics(results: dict, oracle_path: str) -> dict:
                 raise AssertionError(f"{set_name} {key}: {got} vs oracle "
                                      f"{want} (|d| {d} > {tol})")
             deltas[f"{set_name}/{key}"] = d
-    if len(deltas) != N_METRICS:
-        raise AssertionError(f"expected {N_METRICS} metrics, compared "
+    want_n = N_METRICS if sets is None else 9 * len(sets)
+    if len(deltas) != want_n:
+        raise AssertionError(f"expected {want_n} metrics, compared "
                              f"{len(deltas)}")
     return deltas
 
@@ -1220,6 +1285,7 @@ def eval_slice_bf16(t) -> dict:
             stack.enter_context(patched(K, name, span_recorder(spans[name])))
         results = benchmarks.main(["model.dtype=bfloat16", "--ckpt_path",
                                    WEIGHTS, "--device", "cuda",
+                                   "--eval_buckets", "0",
                                    "--testsets", "Set5"])
     torch.cuda.synchronize()
     counts = dict(K.launches)
@@ -1412,7 +1478,8 @@ def eval_family(t, family: str) -> dict:
     K.reset_launches()
     args = (["--bicubic_test"] if family == "bicubic"
             else ["--ckpt_path", FAMILY_WEIGHTS.format(family)])
-    results = benchmarks.main(args + ["--device", "cuda"])
+    results = benchmarks.main(args + ["--device", "cuda", "--eval_buckets",
+                                      "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = dict(K.launches)
@@ -2435,6 +2502,255 @@ def gloo_rank_train(args: list, out_dir: str) -> dict:
     return res
 
 
+def keeping_instances(cls, made: list):
+    """``cls`` as a factory that keeps every instance it makes in
+    ``made``."""
+    def make(*args, **kwargs):
+        obj = cls(*args, **kwargs)
+        made.append(obj)
+        return obj
+    return make
+
+
+def timed_batches(seconds: list):
+    """A wrapper of ``pipeline.eval_batches`` that adds the host's wait for
+    each next batch (PNG decode and LR generation) to ``seconds[0]``."""
+    def wrap(fn):
+        def gen(*args, **kwargs):
+            it = iter(fn(*args, **kwargs))
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    seconds[0] += time.perf_counter() - t0
+                    return
+                seconds[0] += time.perf_counter() - t0
+                yield item
+        return gen
+    return wrap
+
+
+def bucketed_cli(args: list) -> tuple:
+    """``benchmarks.main(args)`` on its default (bucketed) route: its
+    results, its ``BucketedEval``, the host seconds of its split and its
+    peak device bytes."""
+    made, wait = [], [0.0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(benchmarks, "BucketedEval",
+                 lambda cls: keeping_instances(cls, made)), \
+            patched(pipeline, "eval_batches", timed_batches(wait)):
+        results = benchmarks.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(made) != 1:
+        raise AssertionError(f"{args}: {len(made)} bucketed evaluators")
+    ev = made[0]
+    split = {"dataset_iteration": wait[0], **ev.seconds}
+    split["rest"] = wall - sum(split.values())
+    return results, ev, wall, split, torch.cuda.max_memory_allocated()
+
+
+def replay_launches(ev, counts: dict) -> dict:
+    """Each program's launches a run, checked against ``counts``: one
+    eager warm-up and every replay of every program, nothing else."""
+    want = {k: 0 for k in counts}
+    per_program = {}
+    for key, prog in ev._programs.items():
+        for k, n in prog.launches.items():
+            want[k] += (1 + prog.replays) * n
+        per_program["/".join(map(str, key))] = {
+            "replays": prog.replays, "launches_a_run": prog.launches}
+    if want != counts:
+        raise AssertionError(f"launches {counts}, the warm-ups and replays "
+                             f"make {want}")
+    return per_program
+
+
+def eval_bucketed(t, exact: dict) -> tuple:
+    """Phase 10a: the flagship benchmark evaluation (4 sets x {3.14, 4,
+    8}, fp32) through the benchmark CLI's default route, the bucketed
+    eval: the 36 metrics against the JAX-CPU oracle at phase 4's bounds
+    and within BUCKET_TOL of phase 4's exact-shape results, N_PROGRAMS
+    programs, both forward kernels launched and counted per replay.
+    Returns the evaluator (phase 10d replays its graphs) and the
+    launches."""
+    K.reset_launches()
+    results, ev, wall, split, peak = bucketed_cli(
+        ["--ckpt_path", WEIGHTS, "--device", "cuda"])
+    counts = dict(K.launches)
+    for name in FWD:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 f"bucketed run: {counts}")
+    programs = replay_launches(ev, counts)
+    if ev.n_programs != N_PROGRAMS:
+        raise AssertionError(f"{ev.n_programs} programs, expected "
+                             f"{N_PROGRAMS}: {list(programs)}")
+    deltas = hold_metrics(results, ORACLE)
+    vs_exact = {f"{s}/{k}": abs(v - exact[s][k])
+                for s, m in results.items() for k, v in m.items()}
+    worst = max(vs_exact, key=vs_exact.get)
+    if vs_exact[worst] > BUCKET_TOL:
+        raise AssertionError(f"{worst}: bucketed {vs_exact[worst]} from the "
+                             f"exact route (> {BUCKET_TOL})")
+    worst_o = max(deltas, key=deltas.get)
+    phase("slice_eval_bucketed", t, wall_seconds=round(wall, 3),
+          split_seconds={k: round(v, 4) for k, v in split.items()},
+          peak_device_bytes=peak, n_programs=ev.n_programs,
+          programs=programs, launches=counts, metrics=len(deltas),
+          max_delta_vs_oracle=deltas[worst_o], max_delta_at=worst_o,
+          max_delta_vs_exact_route=vs_exact[worst], max_exact_at=worst)
+    return ev, counts
+
+
+def eval_bucketed_bf16(t) -> dict:
+    """Phase 10b: Set5 at {3.14, 4, 8} in bf16 on the bucketed route,
+    against the JAX-CPU oracle of the same computation (``model.use_fused=
+    true``, interpret mode): JAX's bucketed eval with its x4 and x8
+    programs on its integer kernel and its x3.14 programs decoded by its
+    window kernel (``bucketed_window``; JAX's own CLI decodes them with
+    XLA, which rounds at other points in bf16), each metric within phase
+    4b's bound (twice the gap between JAX's XLA and fused exact routes, no
+    tighter than phase 4's); the gap to JAX's CLI route is reported. bf16
+    instances only."""
+    K.reset_launches()
+    results, ev, wall, split, peak = bucketed_cli(
+        ["model.dtype=bfloat16", "--ckpt_path", WEIGHTS, "--device", "cuda",
+         "--testsets", "Set5"])
+    counts = dict(K.launches)
+    for name in FWD:
+        if counts[K.launch_key(name, BF16)] <= 0:
+            raise AssertionError(f"{name} bf16 was never launched: {counts}")
+    if any(counts[k] for k in K.KERNELS):
+        raise AssertionError(f"an fp32 instance ran in bf16 mode: {counts}")
+    replay_launches(ev, counts)
+    with open(BF16_ORACLE) as f:
+        exact_oracle = json.load(f)["set5"]
+    with open(BF16_BUCKETED_ORACLE) as f:
+        oracles = json.load(f)["set5"]
+    deltas, bounds, vs_cli = {}, {}, {}
+    for key, want in oracles["bucketed_window"].items():
+        got = results["Set5"][key]
+        floor = SSIM_TOL if "ssim" in key else PSNR_TOL
+        bnd = oracle_bound(exact_oracle["fused_interpret"][key],
+                           exact_oracle["xla"][key], floor)
+        d = abs(got - want)
+        if not (math.isfinite(got) and d <= bnd):
+            raise AssertionError(f"Set5 bf16 bucketed {key}: {got} vs "
+                                 f"oracle {want} (|d| {d} > {bnd})")
+        deltas[key], bounds[key] = d, bnd
+        vs_cli[key] = abs(got - oracles["bucketed"][key])
+    if len(deltas) != 9:
+        raise AssertionError(f"expected 9 metrics, compared {len(deltas)}")
+    phase("slice_eval_bucketed_bf16", t, wall_seconds=round(wall, 3),
+          split_seconds={k: round(v, 4) for k, v in split.items()},
+          n_programs=ev.n_programs, launches=counts,
+          metrics=results["Set5"], delta_vs_oracle=deltas, bound=bounds,
+          delta_vs_jax_cli_route=vs_cli)
+    return counts
+
+
+def eval_bucketed_family(t, family: str) -> dict:
+    """Phase 10c: LIIF or MetaSR on Set5 at {3.14, 4, 8}, bucketed, fp32:
+    the 9 metrics against the Set5 entries of the family's exact-shape
+    JAX-CPU oracle at phase 6a's bounds; no decoder kernel runs."""
+    K.reset_launches()
+    results, ev, wall, split, _ = bucketed_cli(
+        ["--ckpt_path", FAMILY_WEIGHTS.format(family), "--device", "cuda",
+         "--testsets", "Set5"])
+    counts = dict(K.launches)
+    if any(counts.values()):
+        raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
+    deltas = hold_metrics(results, FAMILY_ORACLE.format(family), ("Set5",))
+    worst = max(deltas, key=deltas.get)
+    phase(f"slice_eval_bucketed_{family}", t, wall_seconds=round(wall, 3),
+          split_seconds={k: round(v, 4) for k, v in split.items()},
+          n_programs=ev.n_programs, launches=counts, metrics=len(deltas),
+          max_delta_vs_oracle=deltas[worst], max_delta_at=worst)
+    return counts
+
+
+def device_launches(run) -> dict:
+    """The decoder forward kernels that ``run()`` puts on the card, by
+    wrapper key, counted from the device's own records (``torch.profiler``,
+    CUPTI): a graph's replay runs kernels that no wrapper sees."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "decode_fwd_kernel<" not in e.key:
+            continue
+        targs = e.key.split("decode_fwd_kernel<", 1)[1]
+        name = FWD[1] if ", true," in targs else FWD[0]
+        if "Bf16" in targs:
+            name = K.launch_key(name, BF16)
+        out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def bucketed_replay_check(t, ev) -> dict:
+    """Phase 10d: each of phase 10a's programs replayed once more on its
+    buffers (the last image of its bucket) and run eagerly by the same
+    function on the same buffers: the three metrics bit-equal (a graph
+    that baked in a scalar or kept a stale pointer would differ). Each
+    program replayed once more under ``torch.profiler``: the decoder
+    kernels the graph runs, counted on the device, equal the launches
+    that 10a booked for each replay (the count of an eager run of the
+    same program, which the wrappers see, is the counting's control).
+    With each replay's device ms (CUDA events) and each eager run's
+    decoder calls' device ms, and from them the decoder's share of phase
+    10a."""
+    K.reset_launches()
+    out, decoder_s = {}, 0.0
+    replays = {key: prog.replays for key, prog in ev._programs.items()}
+    for key, n in replays.items():
+        a, b = events()
+        a.record()
+        res = ev.replay(key)
+        b.record()
+        torch.cuda.synchronize()
+        got, replay_ms = res.tolist(), a.elapsed_time(b)
+        spans = {name: [] for name in FWD}
+        with contextlib.ExitStack() as stack:
+            for name in FWD:
+                stack.enter_context(patched(K, name,
+                                            span_recorder(spans[name])))
+            want = ev.eager(key).tolist()
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError(f"{key}: replay {got} != eager {want}")
+        booked = ev._programs[key].launches
+        before = dict(K.launches)
+        control = device_launches(lambda: ev.eager(key))
+        by_wrappers = {k: v - before[k] for k, v in K.launches.items()
+                       if v != before[k]}
+        if control != by_wrappers:
+            raise AssertionError(f"{key}: the profiler counted {control} "
+                                 f"in an eager run, the wrappers "
+                                 f"{by_wrappers}")
+        on_device = device_launches(lambda: ev.replay(key))
+        if on_device != booked:
+            raise AssertionError(f"{key}: a replay ran {on_device} on the "
+                                 f"device, 10a booked {booked}")
+        dec_ms = sum(span_seconds(v) for v in spans.values()) * 1e3
+        decoder_s += dec_ms * n / 1e3
+        out["/".join(map(str, key))] = {
+            "metrics": got, "replay_ms": replay_ms,
+            "eager_decoder_ms": dec_ms, "replays_in_10a": n,
+            "launches_a_replay_booked": booked,
+            "launches_a_replay_on_device": on_device}
+    phase("bucketed_replay_vs_eager", t, bit_equal=True,
+          launches_counted_on_device=True, programs=out,
+          decoder_seconds_in_10a_from_eager=decoder_s,
+          launches=dict(K.launches))
+    return dict(K.launches)
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
         bf16_cpu_witness(argv[1])
@@ -2503,7 +2819,7 @@ def main(argv: list) -> int:
     # 4) and 5) the main paths, each with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
-    by_path["eval"] = eval_slice(time.perf_counter())
+    by_path["eval"], exact_results = eval_slice(time.perf_counter())
     by_path["train_parity"] = train_parity(dev, time.perf_counter())
     by_path["train"] = train_slice(time.perf_counter())
     by_path["train_fractional"] = train_fractional(time.perf_counter())
@@ -2539,6 +2855,17 @@ def main(argv: list) -> int:
     by_path["rank1_nccl"] = rank1_nccl(time.perf_counter())
     by_path.update(stripes(dev, peaks, time.perf_counter()))
     by_path["gloo_shared_card"] = gloo_shared_card(time.perf_counter())
+    torch.cuda.empty_cache()
+
+    # 10) the bucketed static-shape eval, the benchmark CLI's default route
+    ev, by_path["eval_bucketed"] = eval_bucketed(time.perf_counter(),
+                                                 exact_results)
+    by_path["eval_bucketed_bf16"] = eval_bucketed_bf16(time.perf_counter())
+    for fam in FAMILIES:
+        by_path[f"eval_bucketed_{fam}"] = eval_bucketed_family(
+            time.perf_counter(), fam)
+    by_path["bucketed_replay_vs_eager"] = bucketed_replay_check(
+        time.perf_counter(), ev)
 
     # 7) kernels line, then the device line
     kernels = []

@@ -2,7 +2,8 @@
 
 A tiny DIINN's JAX-initialised params are written in the compact npz
 format (``__meta__`` JSON + ``bf16:`` keys); the JAX CLI and the port's CLI
-(``--device cpu``) then evaluate two Set5 images at x3.14 and x4. Every
+(``--device cpu``) then evaluate two Set5 images at x3.14 and x4, both on
+their default route (bucketed static-shape eval, quantum 64). Every
 metric must agree: PSNR and LR-PSNR within 1e-4 dB, SSIM within 1e-5
 (fp32 summation order in the encoder, decoder and metric reductions).
 """
@@ -82,6 +83,7 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.train.profiling", "tpu_diinn_torch.data.png",
         "tpu_diinn_torch.native.loader", "tpu_diinn_torch.parallel.mesh",
         "tpu_diinn_torch.parallel.sharding", "tpu_diinn_torch.parallel.launch",
+        "tpu_diinn_torch.nn.masking", "tpu_diinn_torch.train.bucketed",
         "tests.torch_parallel_ranks", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -517,3 +517,49 @@ def test_bf16_flagship_forward_and_backward_launch_bf16_instances():
         assert all(p.grad is not None and p.grad.dtype == torch.float32
                    and torch.isfinite(p.grad).all()
                    for p in net.parameters())
+
+
+@pytest.mark.parametrize("scale,kind,name", [
+    (2.0, "kernel", "decode_int_fwd"),
+    (2.5, "traced", "decode_window_fwd")])
+def test_bucketed_graph_replays_match_eager_and_count_launches(scale, kind,
+                                                               name):
+    """Bucketed eval (``train/bucketed.py``) of a tiny DIINN (rdn-tiny,
+    hidden 32): two images of different true sizes in one bucket go
+    through the bucket's one captured CUDA graph; each replay's metrics
+    equal an eager run of the same program function on the same buffers
+    bit for bit, and the launch counts hold the warm-up, every replay and
+    every eager check (5 row bands a run on the traced route)."""
+    from tpu_diinn_torch.train.bucketed import BucketedEval
+    from tpu_diinn_torch.train.task import SRTask
+    dev = _device()
+    net = DIINN(encoder_spec="rdn-tiny", hidden_dims=(32,) * 4,
+                generator=torch.Generator().manual_seed(0)).to(dev)
+    ev = BucketedEval(SRTask(net, eval_bsize=997), quantum=32)
+    rng = np.random.default_rng(0)
+    K.reset_launches()
+    eager_runs = 0
+    for h, w in ((21, 17), (19, 16)):
+        lr = rng.random((1, h, w, 3), dtype=np.float32)
+        hr = rng.random((1, round(h * scale), round(w * scale), 3),
+                        dtype=np.float32)
+        got = ev.metrics(lr, hr, scale)
+        (key,) = ev._programs
+        assert key[0] == kind
+        prog = ev._programs[key]
+        per_run = prog.launches[name]
+        assert per_run == (1 if kind == "kernel" else 5)
+        assert K.launches[name] == (1 + prog.replays + eager_runs) * per_run
+        want = ev.eager(key).tolist()
+        eager_runs += 1
+        assert got == want and all(np.isfinite(got))
+    assert ev.n_programs == 1
+    # the device's own records (CUPTI) of one more replay: the graph runs
+    # the kernels that were booked for it
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev.replay(key)
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages()
+               if "decode_fwd_kernel<" in e.key) == per_run

@@ -2,7 +2,8 @@
 
     python -m tpu_diinn_torch.cli.benchmarks --ckpt_path results/flagship_weights.npz \
         [--scales 3.14 4 8] [--testsets B100 Set5 Set14 Urban100] \
-        [--max_images N] [--device cuda|cpu] [key=value ...]
+        [--max_images N] [--eval_buckets QUANTUM] [--device cuda|cpu] \
+        [key=value ...]
     python -m tpu_diinn_torch.cli.benchmarks --bicubic_test [...]
 
 Counterpart of ``tpu_diinn/cli/benchmarks.py``: PSNR/SSIM/LR-PSNR per scale
@@ -13,6 +14,14 @@ overrides win over it (e.g. ``model.use_fused=false`` runs the eager
 decoder instead of the CUDA kernels). ``--bicubic_test`` evaluates the
 bicubic baseline (the default config with ``model.arch=bicubic``, no
 weights).
+
+By default a model is evaluated on the bucketed static-shape route
+(``train/bucketed.py``), as the JAX CLI does: each image is padded to a
+bucket canvas (sides rounded up to ``--eval_buckets``, 64) and run by the
+bucket's program, on the card one CUDA graph captured once and replayed
+for every image of the bucket. ``--eval_buckets 0`` evaluates each image
+at its exact shape; so do ``--bicubic_test`` and a model outside the
+bucketed scope (DIINN mode 4), which the CLI says.
 
 Runs on the card by default. ``--device cuda`` on a host without CUDA
 raises; it does not fall back to the CPU. TF32 is turned off for cuBLAS
@@ -33,6 +42,7 @@ import torch
 
 from tpu_diinn_torch.config.config import _set_dotted, load_config
 from tpu_diinn_torch.train import loop
+from tpu_diinn_torch.train.bucketed import BucketedEval, BucketedUnsupported
 from tpu_diinn_torch.train.checkpoint import (load_params_npz,
                                               state_dict_from_jax)
 
@@ -60,6 +70,9 @@ def main(argv=None):
     p.add_argument("--testsets", type=str, nargs="+",
                    default=["B100", "Set5", "Set14", "Urban100"])
     p.add_argument("--max_images", type=int, default=None)
+    p.add_argument("--eval_buckets", type=int, default=64, metavar="QUANTUM",
+                   help="bucket quantum for static-shape eval (0 = exact "
+                        "per-shape eval)")
     p.add_argument("--device", type=str, default="cuda")
     args, overrides = p.parse_known_args(argv)
     if args.bicubic_test == (args.ckpt_path is not None):
@@ -86,6 +99,13 @@ def main(argv=None):
         for name in args.testsets]
     datasets = loop.make_test_datasets(cfg)
 
+    evaluator = None
+    if args.eval_buckets and not args.bicubic_test:
+        try:
+            evaluator = BucketedEval(task, quantum=args.eval_buckets)
+        except BucketedUnsupported as e:
+            print(f"[bucketed eval unavailable: {e}; exact-shape eval]")
+
     results = {}
     t0 = time.time()
     for name, dset in datasets.items():
@@ -93,9 +113,12 @@ def main(argv=None):
             print(f"[skip] {name}: no images under {args.root}")
             continue
         res = loop.test_metrics(task, dset, max_images=args.max_images,
-                                device=device)
+                                device=device, evaluator=evaluator)
         results[name] = res
         print(name, json.dumps(res, indent=2))
+    if evaluator is not None:
+        print(f"[bucketed eval: {evaluator.n_programs} programs, "
+              f"{time.time() - t0:.1f}s total]")
     print(f"[eval: {time.time() - t0:.1f}s on {device}]")
     print(json.dumps(results), flush=True)
     return results

@@ -128,13 +128,17 @@ class ImplicitDecoder(nn.Module):
         - features in the compute dtype, float32 or bfloat16 (the kernels'
           two precisions).
         """
+        return self._fused_config_ok() and feat.dtype == self.dtype
+
+    def _fused_config_ok(self) -> bool:
+        """``_fused_ok``'s configuration part (the compute dtype in place
+        of the features')."""
         if self.use_fused is False:
             return False
         return (self.mode == 3 and not self.init_q and not self.exact_sin
                 and len(set(self.hidden_dims)) == 1
                 and self.hidden_dims[0] in kern.KERNEL_HIDDEN
-                and feat.dtype == self.dtype
-                and feat.dtype in kern.DTYPES)
+                and self.dtype in kern.DTYPES)
 
     def _fused_params(self) -> dict:
         """The kernels' packed weights in float32 (``decode`` casts them to
@@ -304,6 +308,45 @@ class ImplicitDecoder(nn.Module):
         over the stripe's column index vector."""
         return self.windows(feat, size)(
             0, size[0], stripe_columns(size[1], col_start, stripe_w))
+
+    def decode_traced(self, feat: torch.Tensor, syn: torch.Tensor,
+                      rows: torch.Tensor, cols: torch.Tensor,
+                      bsize: int) -> torch.Tensor:
+        """Decode with gather indices and synthesis grid given as device
+        tensors, the unit of bucketed eval (``train/bucketed.py``; the JAX
+        ``decode_traced``): ``syn`` (H_out, W_out, 3) float32, ``rows``
+        (H_out,) and ``cols`` (W_out,) int32, non-decreasing. Nothing here
+        depends on their values, so one captured CUDA graph serves every
+        image padded to the same shapes. Row bands of ``bsize // W_out``
+        rows; on the fused route one ``decode_window_fwd`` a band, else
+        the eager ``hr_step`` (``hr_step_init_q``) over gathered features.
+        Modes 1-3: mode 4's output conv depends on the band borders."""
+        if self.mode == 4:
+            raise ValueError("decode_traced does not support mode 4")
+        b = feat.shape[0]
+        h_out, w_out = syn.shape[0], syn.shape[1]
+        band = max(1, bsize // max(w_out, 1))
+        if self._fused_ok(feat):
+            z = self.lr_features_stacked(feat)
+            params = self._fused_params()
+
+            def decode_band(lo, hi):
+                return kern.decode(z, syn[lo:hi], params, rows=rows[lo:hi],
+                                   cols=cols).to(z.dtype)
+        else:
+            zs = self.lr_features(feat)
+
+            def decode_band(lo, hi):
+                gath = tuple(None if z is None else
+                             z.index_select(1, rows[lo:hi])
+                             .index_select(2, cols) for z in zs)
+                synb = syn[None, lo:hi].expand(b, hi - lo, w_out, 3)
+                if self.init_q:
+                    return self.hr_step_init_q(gath[0], synb)
+                return self.hr_step(gath, synb)
+        outs = [decode_band(lo, min(lo + band, h_out))
+                for lo in range(0, h_out, band)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     def decode_window(self, zs: Tuple[Optional[torch.Tensor], ...],
                       syn: torch.Tensor, rows: np.ndarray, cols: np.ndarray

@@ -16,7 +16,10 @@ sharded_encoder_apply``), a k x k conv first takes (k - 1) // 2 rows from
 each neighbouring rank (zeros at the image's border) and convolves VALID
 along H, SAME along W, so each rank's slab comes out as the unsharded
 conv's rows. ``Dense`` works on the last axis (NHWC). The TPU-only
-column-pair packed conv is not ported.
+column-pair packed conv is not ported. Under ``nn/masking.valid_extent``
+(bucketed eval) ``Conv`` zeroes its output, after the bias, beyond the
+image's true extent, and so does ``MeanShift``; a halo conv under an
+active mask raises.
 
 Compute dtype (``dtype``), as flax's ``promote_dtype`` has it: the
 parameters stay float32, and ``forward`` casts the input, the weight and
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_diinn_torch.nn.masking import apply_valid_mask, masking_active
 from tpu_diinn_torch.parallel.sharding import halo_exchange
 
 
@@ -72,14 +76,19 @@ class Conv(nn.Module):
         c = self.conv
         pad = c.padding if padding is None else padding
         if self.halo is not None and padding is None and c.padding[0] > 0:
+            if masking_active():
+                raise RuntimeError("valid-extent masking is not supported "
+                                   "in a halo-sharded conv")
             k = c.padding[0]
             x = halo_exchange(x, k, self.halo, dim=2)
             pad = (0, k)
         if self.dtype == torch.float32:
-            return F.conv2d(x, c.weight, c.bias, padding=pad)
+            return apply_valid_mask(F.conv2d(x, c.weight, c.bias,
+                                             padding=pad))
         y = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), padding=pad)
-        return y if c.bias is None else y + c.bias.to(self.dtype)[:, None,
-                                                                  None]
+        if c.bias is not None:
+            y = y + c.bias.to(self.dtype)[:, None, None]
+        return apply_valid_mask(y)
 
 
 class Dense(nn.Module):
@@ -131,20 +140,23 @@ DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 class MeanShift(nn.Module):
     """Frozen shift by the DIV2K RGB mean on NCHW tensors; ``sign=-1``
     subtracts. The JAX module's std is 1 wherever the repo builds it, so
-    the port has no std. No parameters and no buffers (the flax module has
-    none). The JAX module also zeroes what lies beyond an image's true
-    extent under bucketed eval; the port has no bucketed eval, so that mask
-    is left out."""
+    the port has no std. No parameters (the flax module has none): the mean
+    is a non-persistent buffer, so it moves with the module, stays out of
+    the state dict, and a captured CUDA graph reads it without a host
+    upload. Under ``valid_extent`` the output is zeroed beyond the true
+    extent, so that the next conv sees zeros there (bucketed eval)."""
 
     def __init__(self, rgb_range: float = 1.0, sign: int = -1):
         super().__init__()
         self.rgb_range = rgb_range
         self.sign = sign
+        self.register_buffer("mean", torch.tensor(DIV2K_RGB_MEAN,
+                                                  dtype=torch.float64),
+                             persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(DIV2K_RGB_MEAN, dtype=torch.float64).to(
-            x.device, x.dtype)[:, None, None]
-        return x + self.sign * self.rgb_range * mean
+        mean = self.mean.to(x.dtype)[:, None, None]
+        return apply_valid_mask(x + self.sign * self.rgb_range * mean)
 
 
 class ResBlock(nn.Module):

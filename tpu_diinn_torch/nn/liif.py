@@ -101,6 +101,22 @@ class LIIF(nn.Module):
         return self._blend(z, [(iy, ry, ix[cols], rx[cols])
                                for iy, ry, ix, rx in maps], cell)
 
+    def decode_traced(self, feat: torch.Tensor, per_corner: List[tuple],
+                      cell: torch.Tensor, out_hw: Tuple[int, int],
+                      bsize: int) -> torch.Tensor:
+        """Decode with per-corner (row index, row rel, column index, column
+        rel) vectors and the (2,) ``cell`` given as device tensors, the
+        unit of bucketed eval (``train/bucketed.py``): the work depends
+        only on the padded ``out_hw``. Row bands of ``bsize // W_out``
+        rows."""
+        h_out, w_out = out_hw
+        z = self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        band = max(1, bsize // max(w_out, 1))
+        outs = [self._blend(z, [(iy[lo:lo + band], ry[lo:lo + band], ix, rx)
+                                for iy, ry, ix, rx in per_corner], cell)
+                for lo in range(0, h_out, band)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
     def _lookups(self, feat: torch.Tensor, size: Tuple[int, int]):
         """(the first layer's feature conv z, per corner (row index, row
         rel, column index, column rel) on the device, the cell)."""

@@ -94,20 +94,35 @@ class MetaSR(nn.Module):
         iy, ry, ix, rx = (torch.from_numpy(a).to(dev) for a in (
             iy.astype(np.int64), ry, ix.astype(np.int64), rx))
         # r_rev = cell_h * H_in / 2, a float32 scalar
-        r_rev = float(np.float32((2.0 / h_out) * h_in / 2.0))
+        r_rev = torch.full((), float(np.float32((2.0 / h_out) * h_in / 2.0)),
+                           dtype=torch.float32, device=dev)
         return unfolded, iy, ry, ix, rx, r_rev
 
+    def decode_traced(self, feat: torch.Tensor, iy, ry, ix, rx,
+                      r_rev: torch.Tensor, out_hw: Tuple[int, int],
+                      bsize: int) -> torch.Tensor:
+        """Decode with the per-axis index and rel-coord vectors and the 0-d
+        ``r_rev`` given as device tensors, the unit of bucketed eval
+        (``train/bucketed.py``). Row bands of ``bsize // W_out`` rows."""
+        h_out, w_out = out_hw
+        unfolded = unfold3x3(feat)
+        band = max(1, bsize // max(w_out, 1))
+        outs = [self._pred(unfolded, iy[lo:lo + band], ry[lo:lo + band], ix,
+                           rx, r_rev)
+                for lo in range(0, h_out, band)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
     def _pred(self, unfolded: torch.Tensor, iy, ry, ix, rx,
-              r_rev: float) -> torch.Tensor:
+              r_rev: torch.Tensor) -> torch.Tensor:
         """The hypernet's projection over the window of rows ``iy`` and
-        columns ``ix`` (index and rel-coord vectors)."""
+        columns ``ix`` (index and rel-coord vectors; ``r_rev`` a 0-d
+        float32 tensor, read on the device)."""
         b = unfolded.shape[0]
         h_c, w_c = iy.shape[0], ix.shape[0]
         q_feat = unfolded.index_select(1, iy).index_select(2, ix)
         inp = torch.stack([ry[:, None].expand(h_c, w_c),
                            rx[None, :].expand(h_c, w_c),
-                           torch.full((h_c, w_c), r_rev,
-                                      device=ry.device)], dim=-1)
+                           r_rev.expand(h_c, w_c)], dim=-1)
         inp = inp[None].expand(b, h_c, w_c, 3).to(q_feat.dtype)
         w = self.hyper_fc1(torch.relu(self.hyper_fc0(inp)))
         w = w.reshape(b, h_c, w_c, self.feat_dim * 9, 3)

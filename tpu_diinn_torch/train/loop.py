@@ -3,7 +3,9 @@ validation, benchmark metrics.
 
 Counterpart of ``tpu_diinn/train/loop.py`` on one device, run eagerly:
 PyTorch compiles nothing here, so the JAX package's per-shape jit cache
-and its bucketed static-shape eval have no counterpart. A training step
+has no counterpart; its bucketed static-shape eval is
+``train/bucketed.BucketedEval`` (one CUDA graph per bucket), which
+``test_metrics`` takes as its ``evaluator``. A training step
 is forward, multi-scale L1, backward (through the fused decoder's backward
 kernels on a card), the global gradient norm and one Adam update, with
 the learning rate keyed on the global step. Each epoch ends with a
@@ -282,19 +284,24 @@ def validate(task: SRTask, dataset, *, max_images: Optional[int] = None,
 
 @torch.inference_mode()
 def test_metrics(task: SRTask, dataset, *, max_images: Optional[int] = None,
-                 device="cuda") -> Dict[str, float]:
+                 device="cuda", evaluator=None) -> Dict[str, float]:
     """Benchmark test loop: psnr/ssim/lr_psnr per scale, averaged over
-    images."""
+    images. ``evaluator`` (the JAX ``jit_cache``): a
+    ``bucketed.BucketedEval`` of ``task``, which takes each image pair as
+    host arrays; None evaluates each image at its exact shape."""
     acc: Dict[str, WeightedMean] = {}
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     for _, batch in pipeline.eval_batches(dataset, range(n)):
         for s, (lr, hr, _name) in batch.items():
-            lr = torch.from_numpy(lr).to(device)
-            hr = torch.from_numpy(hr).to(device)
             bs = lr.shape[0]
-            pred = task.predict(lr, (hr.shape[1], hr.shape[2]))
-            vals = torch.stack([M.psnr(pred, hr), M.ssim(pred, hr),
-                                M.lr_psnr(pred, hr, s)]).tolist()
+            if evaluator is not None:
+                vals = evaluator.test_fn(s, lr.shape, hr.shape)(lr, hr)
+            else:
+                lr = torch.from_numpy(lr).to(device)
+                hr = torch.from_numpy(hr).to(device)
+                pred = task.predict(lr, (hr.shape[1], hr.shape[2]))
+                vals = torch.stack([M.psnr(pred, hr), M.ssim(pred, hr),
+                                    M.lr_psnr(pred, hr, s)]).tolist()
             for key, v in zip(("test_psnr", "test_ssim", "test_lr_psnr"),
                               vals):
                 acc.setdefault(f"{key}_x{s:g}", WeightedMean()).update(v, bs)
