@@ -507,15 +507,22 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """``decode_bwd_chain_kernel<8,0,Bf16>`` from its mangled name (the
-    precision policy, hopper_chain::Tf32 or Bf16, as its last argument)."""
-    m = re.search(r"\d+([a-z_]+_kernel)((?:I(?:L[a-z]+\d+E|"
-                  r"N12hopper_chain4(?:Tf32|Bf16)E)+E)?)", mangled)
-    if not m:
-        return mangled
-    args = [a or b for a, b in re.findall(
-        r"L[a-z]+(\d+)E|hopper_chain4(Tf32|Bf16)E", m.group(2))]
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    """``decode_bwd_chain_kernel<8,0,Tf32>`` or
+    ``decode_bwd_chain_bf16_kernel<8,0,1>`` from its mangled name: the
+    length-prefixed name that ends in ``_kernel``, and its template
+    arguments (integers, and the precision policy, hopper_chain::Tf32 or
+    Bf16)."""
+    for m in re.finditer(r"(\d+)", mangled):
+        at = m.end()
+        name = mangled[at:at + int(m.group(1))]
+        if not re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+            continue
+        args = re.match(r"(?:I(?:L[a-z]+\d+E|N12hopper_chain4(?:Tf32|Bf16)"
+                        r"E)+E)?", mangled[at + len(name):]).group(0)
+        vals = [a or b for a, b in re.findall(
+            r"L[a-z]+(\d+)E|hopper_chain4(Tf32|Bf16)E", args)]
+        return name + (f"<{','.join(vals)}>" if vals else "")
+    return mangled
 
 
 def check_fwd(name, fn, ref, n_query, nbytes, peaks, shape,
@@ -802,9 +809,26 @@ def eval_kernels(dev, peaks, peak_bf16, t) -> dict:
     return checks
 
 
+def bwd_bf16_ptxas() -> dict:
+    """ptxas's registers and spills of the bf16 backward's kernels at
+    hidden 256 (the chain kernel's instances: <8, window, fold>)."""
+    regs = ptxas_by_kernel(build.build_info["decoder_bwd"]["log"])
+    return {k: v for k, v in regs.items() if k.startswith((
+        "decode_bwd_chain_bf16_kernel<8,", "wgrad_bf16_kernel<8>",
+        "tile_sum_kernel", "fold_dz_bf16_kernel<"))}
+
+
+def scratch_a_query(nq: int, n_pix: int, run: int, dtype) -> float:
+    """Bytes of a backward call's scratch a query, without the weight
+    gradients' partial sums (``K.bwd_scratch_bytes``)."""
+    return K.bwd_scratch_bytes(nq, n_pix, run, HIDDEN, LAYERS, dtype,
+                               True) / nq
+
+
 def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
     """Phase 3b: rows 3-5 at the flagship training shapes, fp32 and
-    bf16."""
+    bf16; the backward rows with their scratch bytes a query, the bf16
+    ones with their kernels' registers and spills."""
     gen = torch.Generator().manual_seed(1)
     p = flagship_params(gen, dev)
     w_bytes = sum(v.numel() * 4 for v in p.values())
@@ -833,6 +857,8 @@ def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
             lambda: K.decode_int_bwd_ref(z, syn, s, s, p, g), nq,
             2 * z_bytes + syn.numel() * 4 + 2 * w_bytes + nq * 12, peaks,
             f"train B {b} LR {h_in}x{h_in} x{s}", masked)
+        res["scratch_bytes_a_query"] = scratch_a_query(
+            nq, b * h_in * h_in, s * s, torch.float32)
         phase("train_kernel", t, **res)
         checks.setdefault("decode_int_bwd", []).append(res)
         del syn, g
@@ -857,6 +883,9 @@ def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
             lambda: K.decode_int_bwd_ref(z32, synb, s, s, p32, g), nq,
             z_bytes + synb.numel() * 4 + 2 * wb_bytes + nq * 12, peaks,
             peak_bf16, shape, masked)
+        res["scratch_bytes_a_query"] = scratch_a_query(
+            nq, b * h_in * h_in, s * s, BF16)
+        res["ptxas"] = bwd_bf16_ptxas()
         phase("train_kernel", t, **res)
         checks.setdefault("decode_int_bwd_bf16", []).append(res)
         del zb, z32, synb, g
@@ -882,6 +911,8 @@ def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
         lambda: K.decode_window_bwd_ref(z, syn, rows, rows, p, g), nq,
         2 * z_bytes + syn.numel() * 4 + 2 * w_bytes + nq * 12
         + 2 * rows.size * 4, peaks, shape, masked)
+    res["scratch_bytes_a_query"] = scratch_a_query(nq, b * h_in * h_in, 0,
+                                                   torch.float32)
     phase("train_kernel", t, **res)
     checks["decode_window_bwd"] = [res]
     del g
@@ -905,6 +936,9 @@ def train_kernels(dev, peaks, peak_bf16, t, checks: dict) -> None:
         lambda: K.decode_window_bwd_ref(z32, synb, rows, rows, p32, g), nq,
         z_bytes + synb.numel() * 4 + 2 * wb_bytes + nq * 12
         + 2 * rows.size * 4, peaks, peak_bf16, shape, masked)
+    res["scratch_bytes_a_query"] = scratch_a_query(nq, b * h_in * h_in, 0,
+                                                   BF16)
+    res["ptxas"] = bwd_bf16_ptxas()
     phase("train_kernel", t, **res)
     checks["decode_window_bwd_bf16"] = [res]
 
@@ -2788,10 +2822,12 @@ def main(argv: list) -> int:
                 if "registers" in ln or "spill" in ln]
         sass = sass_counts(build.library_path(name))
         if "cuobjdump" not in sass:
+            # kernel name prefixes: every instance has tensor-core
+            # instructions, every bf16 one (a Bf16 policy argument, or the
+            # backward's own bf16 kernels) HGMMA
             need = {"decoder_fused": (("decode_fwd_kernel", ("HGMMA",)),),
-                    "decoder_bwd": (("decode_bwd_chain_kernel",
-                                     ("HMMA", "HGMMA")),
-                                    ("wgrad_kernel", ("HMMA", "HGMMA")))}
+                    "decoder_bwd": (("decode_bwd_chain", ("HMMA", "HGMMA")),
+                                    ("wgrad", ("HMMA", "HGMMA")))}
             for kern, ops in need[name]:
                 tc = [sum(v[op] for op in ops) for k, v in sass.items()
                       if k.startswith(kern)]
@@ -2799,7 +2835,8 @@ def main(argv: list) -> int:
                     raise AssertionError(f"{kern}: an instance without "
                                          f"{'/'.join(ops)}: {sass}")
                 hg = [v["HGMMA"] for k, v in sass.items()
-                      if k.startswith(kern) and k.endswith("Bf16>")]
+                      if k.startswith(kern) and (k.endswith("Bf16>")
+                                                 or "_bf16_kernel" in k)]
                 if not hg or min(hg) == 0:
                     raise AssertionError(f"{kern}: a bf16 instance without "
                                          f"HGMMA: {sass}")

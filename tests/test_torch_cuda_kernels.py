@@ -303,11 +303,14 @@ def test_decode_window_stripe_matches_plain(hidden, start, width):
                                                      g))
 
 
-def _assert_equal_calls(call):
-    a = call()
-    b = call()
+def _assert_same(a, b):
+    """Two backward results (dz, grads) agree bit for bit."""
     assert torch.equal(a[0], b[0])
     assert all(torch.equal(a[1][k], b[1][k]) for k in K.PARAM_KEYS)
+
+
+def _assert_equal_calls(call):
+    _assert_same(call(), call())
 
 
 def test_decode_int_bwd_is_deterministic():
@@ -466,8 +469,14 @@ def _assert_bwd_close_bf16(got, want):
 
 
 @pytest.mark.parametrize("hidden,n_layers", [(32, 4), (64, 3), (256, 4)])
-@pytest.mark.parametrize("b,lr,s", [(2, (6, 8), (2, 2)), (1, (5, 7), (3, 3))])
+@pytest.mark.parametrize("b,lr,s", [(2, (6, 8), (2, 2)), (1, (5, 7), (3, 3)),
+                                    (3, (9, 6), (4, 4)), (1, (4, 3), (9, 8))])
 def test_decode_int_bwd_bf16_matches_plain(hidden, n_layers, b, lr, s):
+    """x2, x3 and x4 fold dz inside the chain kernel's pixel-ordered tiles
+    (96 pixels at x2: 6 tiles of 16; 35 at x3: 5 tiles of 7, each with a
+    dead row; 162 at x4: 41 tiles of 4, the last ragged); (9, 8), 72
+    queries a pixel, goes through fold_dz_bf16_kernel. Two calls agree bit for
+    bit."""
     out_hw = (lr[0] * s[0], lr[1] * s[1])
     z, syn, _, _, p, g = _bwd_case_bf16(hidden, n_layers, b, lr, out_hw,
                                         None, hidden + lr[0])
@@ -477,19 +486,22 @@ def test_decode_int_bwd_bf16_matches_plain(hidden, n_layers, b, lr, s):
     assert K.launches["decode_int_bwd_bf16"] == before + 1
     _assert_bwd_close_bf16(got, K.decode_int_bwd_ref(z, syn, s[0], s[1], p,
                                                      g))
+    _assert_same(got, K.decode_int_bwd(z, syn, s[0], s[1], p, g))
 
 
 @pytest.mark.parametrize("hidden", [32, 64, 256])
 def test_decode_window_bwd_bf16_matches_plain(hidden):
     z, syn, rows, cols, p, g = _bwd_case_bf16(hidden, 3, 2, (7, 9), (22, 28),
                                               (3, 19, 5, 14), hidden)
+    rv = K.index_vector(rows, 7, z.device)
+    cv = K.index_vector(cols, 9, z.device)
     before = K.launches["decode_window_bwd_bf16"]
-    got = K.decode_window_bwd(z, syn, K.index_vector(rows, 7, z.device),
-                              K.index_vector(cols, 9, z.device), p, g)
+    got = K.decode_window_bwd(z, syn, rv, cv, p, g)
     torch.cuda.synchronize()
     assert K.launches["decode_window_bwd_bf16"] == before + 1
     _assert_bwd_close_bf16(got, K.decode_window_bwd_ref(z, syn, rows, cols,
                                                         p, g))
+    _assert_same(got, K.decode_window_bwd(z, syn, rv, cv, p, g))
 
 
 def test_bf16_flagship_forward_and_backward_launch_bf16_instances():

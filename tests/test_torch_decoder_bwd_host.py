@@ -16,9 +16,14 @@ plain bf16 versions on the same shapes plus hidden 256 at L = 4, within
 pre-activation of the bf16 chain lies within 1e-3 of zero: both sides
 round q, d, dpre_0 and g to bf16 after fp32 sums taken in different
 orders, so now and then a value rounds to the other neighbour (2^-8 of
-it), and dz is rounded to bf16 once. It cannot check the PTX (descriptor
-bits, copies) or the timing: the ``cuda``-marked tests and
-``chip_smoke.py`` do that on a card. Skips without g++.
+it), and dz is rounded to bf16 once. The bf16 cases cover both of its dz
+routes: folded inside the chain kernel's pixel-ordered tiles (integer
+ratios with s_h * s_w <= 64, among them a ragged last tile and x3's dead
+row) and through fold_dz_bf16_kernel (the window, and (9, 8)), and a single
+layer. ``test_scratch_bytes_a_query`` reads the scratch the harness
+allocates. It cannot check the PTX (descriptor bits, copies) or the
+timing: the ``cuda``-marked tests and ``chip_smoke.py`` do that on a
+card. Skips without g++.
 """
 
 import math
@@ -131,7 +136,8 @@ def run_case(harness, tmp_path, h, n_layers, b, lr, ratio, win,
                       want[key]))
         at += n
     assert at == flat.numel()
-    assert pairs[4][1][:, :h].abs().max().item() == 0.0  # kq half of dbcat
+    if n_layers > 1:  # the kq half of dbcat
+        assert pairs[4][1][:, :h].abs().max().item() == 0.0
     return pairs
 
 
@@ -146,11 +152,55 @@ def test_host_emulation_matches_plain(harness, tmp_path, h, n_layers, b, lr,
 
 @pytest.mark.parametrize("h,n_layers,b,lr,ratio,win", CASES + [
     (256, 4, 1, (2, 2), (2, 2), None),     # flagship width and depth
+    (32, 3, 2, (3, 5), (4, 4), None),      # x4: 4 pixels a tile, ragged
+    (256, 4, 1, (3, 3), (3, 3), None),     # x3: 7 pixels and a dead row
+    (32, 2, 1, (2, 2), (9, 8), None),      # 72 queries a pixel: fold pass
+    (256, 4, 1, (3, 3), None, (5, 7)),     # window, flagship width
+    (64, 1, 2, (3, 2), (2, 2), None),      # one layer
 ])
 def test_host_emulation_bf16_matches_plain(harness, tmp_path, h, n_layers,
                                            b, lr, ratio, win):
     pairs = run_case(harness, tmp_path, h, n_layers, b, lr, ratio, win,
                      torch.bfloat16, MARGIN_BF16)
     for name, got, ref in pairs:
+        if ref.numel() == 0:  # one layer: no dWcat, dbcat
+            assert got.numel() == 0, name
+            continue
         err = (got - ref).abs().max().item()
         assert err <= TOL_BF16 * ref.abs().max().item(), (name, err)
+
+
+
+# the flagship's training shapes (smoke phase 3b: B 4, LR 48, hidden 256,
+# L = 4): x2, x3, x4 and the x2.5 window; a bound of bytes a query each
+SCRATCH_CASES = [
+    (torch.bfloat16, 2, 6144), (torch.bfloat16, 3, 6144),
+    (torch.bfloat16, 4, 6144), (torch.bfloat16, 2.5, 10240),
+    (torch.float32, 4, 18432),
+]
+
+
+@pytest.mark.parametrize("dtype,scale,limit", SCRATCH_CASES)
+def test_scratch_bytes_a_query(harness, dtype, scale, limit):
+    """The scratch the harness allocates (its ``plan`` mode prints it for
+    a shape without running it), per query and without the weight
+    gradients' partial sums: the bf16 integer route at most 6,144 B (bf16
+    q and d; x3's dead row of every tile included), its window route at
+    most 10,240 (plus fp32 dz terms); the fp32 design exactly 18,432. The
+    partial sums come on top."""
+    b, lr, h_out = 4, 48, int(48 * scale)
+    window = int(scale != int(scale))
+    s = 1 if window else int(scale)
+    out = subprocess.run(
+        [str(harness), "-", str(window), str(b), str(lr), str(lr),
+         str(h_out), str(h_out), str(s), str(s), "256", "4",
+         str(int(dtype == torch.bfloat16)), "plan"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()
+    plan = {k: int(v) for k, v in zip(out[::2], out[1::2])}
+    assert plan["n_query"] == b * h_out * h_out
+    per_query = plan["activation_bytes"] / plan["n_query"]
+    if dtype == torch.bfloat16:
+        assert per_query <= limit, plan
+    else:
+        assert per_query == limit, plan
+    assert plan["scratch_bytes"] > plan["activation_bytes"]

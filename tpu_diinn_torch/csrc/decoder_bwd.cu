@@ -34,13 +34,23 @@
 // The bf16 instances (bf16 = 1 at the interface; decoder_bwd.cuh's Bf16
 // policy) take z, W0, Wl and the weight slabs in bf16 and return dz in
 // bf16 and the weight gradients in fp32, every product on bf16 operands
-// with fp32 sums (989 TFLOP/s peak).
+// with fp32 sums. At the 989 TFLOP/s bf16 peak the same products bound the
+// call at a sixth of the fp32 time, so the bytes do: the Tf32 design moves
+// about 55 KB a query through device memory. Their own design
+// (decoder_bwd.cuh, run_bwd_bf16) stores q and the weight gradient's
+// operand d in bf16 (4,608 B a query at hidden 256, L = 4), recomputes k
+// and a from q rather than storing them, folds dz inside the chain
+// kernel's tiles on the integer route (s_h * s_w <= 64; elsewhere 4,096 B
+// a query of fp32 dz terms go to fold_dz_bf16_kernel), and sums the thin
+// gradients per tile in the chain kernel: about 11 KB a query in all.
+// Measured, what then bounds it is latency in its chain kernel
+// (decoder_bwd.cuh, PERF.md).
 //
 // Interface: plain C, loaded with ctypes, like decoder_fused.cu. Each
 // launcher runs on the caller's current device and stream, allocates
 // nothing (the caller passes a scratch buffer of
-// decoder_bwd_scratch_floats(...) floats) and returns the first CUDA error
-// of its launches (0 = launched).
+// decoder_bwd_scratch_bytes(...) bytes, 16-byte aligned) and returns the
+// first CUDA error of its launches (0 = launched).
 
 #include <cuda_runtime.h>
 
@@ -104,10 +114,16 @@ static int launch_prec(int bf16, const void* z, const float* syn,
 
 extern "C" {
 
-// Floats of scratch one backward call needs for `n_query` HR queries.
-long long decoder_bwd_scratch_floats(long long n_query, int hidden,
-                                     int n_layers) {
-  return decoder_bwd::Plan(n_query, hidden, n_layers).s_total;
+// Bytes of scratch one backward call needs for `n_query` HR queries that
+// read `n_pix` LR pixels in runs of `run` queries (s_h * s_w on the
+// integer route, 0 on the window route), in the precision bf16; with
+// activations_only, the bytes of its per-query sections alone (without
+// the partial sums of the weight gradients).
+long long decoder_bwd_scratch_bytes(long long n_query, long long n_pix,
+                                    int run, int hidden, int n_layers,
+                                    int bf16, int activations_only) {
+  return decoder_bwd::scratch_bytes(n_query, n_pix, run, hidden, n_layers,
+                                    bf16 != 0, activations_only != 0);
 }
 
 // z (B, H_in, W_in, L*hidden), syn (s_h*H_in, s_w*W_in, 3), w0, b0, bcat

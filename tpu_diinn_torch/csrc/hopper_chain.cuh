@@ -996,6 +996,12 @@ __device__ __forceinline__ long long load_queries(
   return qi;
 }
 
+// chain_forward's default tile hook: nothing.
+struct NoTileHook {
+  template <class A>
+  __device__ __forceinline__ void operator()(int, const A*) const {}
+};
+
 // The chain forward over one tile, on all kThreads threads: layer 0
 // elementwise, then layers 1..L-1 as [k | a] = q @ [Wkq | Wq] (wg_product,
 // pass by pass as ChainTiling splits them), each pass followed by its
@@ -1010,15 +1016,19 @@ __device__ __forceinline__ long long load_queries(
 // stores there, the forward's sink does nothing and compiles to nothing.
 // kPrefetch is wg_product's (the arithmetic is the same either way). Layer
 // i's q goes to q_cur for even i, q_next for odd i (as the pointers are
-// passed); dead rows are zero. Returns behind a barrier.
-template <class P, int kHidden, bool kPrefetch, class Sink>
+// passed); dead rows are zero. Once layer i's q tile is whole (behind a
+// barrier) every thread calls tile_hook(i, tile): the bf16 backward copies
+// the tile out there. Returns behind a barrier.
+template <class P, int kHidden, bool kPrefetch, class Sink,
+          class TileHook = NoTileHook>
 __device__ __forceinline__ void chain_forward(
     const long long* zoff, const float* synv,
     const typename P::Z* __restrict__ z,
     const typename P::W* __restrict__ w0, const float* __restrict__ b0,
     const typename P::W* __restrict__ wslab, const float* __restrict__ bcat,
     int n_layers, typename P::A* q_cur, typename P::A* q_next,
-    typename P::W* ring, uint64_t* bars, uint32_t& phase, Sink&& sink) {
+    typename P::W* ring, uint64_t* bars, uint32_t& phase, Sink&& sink,
+    TileHook&& tile_hook = TileHook()) {
   using T = ChainTiling<kHidden, P>;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -1073,6 +1083,7 @@ __device__ __forceinline__ void chain_forward(
       }
   }
   __syncthreads();
+  tile_hook(0, static_cast<const typename P::A*>(q_cur));
 
   for (int layer = 1; layer < n_layers; ++layer) {
     const float* bq = bcat + static_cast<long long>(layer - 1) * 2 * kHidden +
@@ -1123,6 +1134,7 @@ __device__ __forceinline__ void chain_forward(
         }
     }
     __syncthreads();  // the next q tile is whole; the old one is free
+    tile_hook(layer, static_cast<const typename P::A*>(q_next));
     typename P::A* t = q_cur;
     q_cur = q_next;
     q_next = t;

@@ -11,7 +11,8 @@
 // warpgroup's wgmma exchanges the A fragments through a per-warpgroup slot
 // and a 128-thread barrier, then each thread computes its accumulator
 // elements from the PTX fragment layouts with the operands cut to TF32, or
-// (bf16 wgmma) from bf16 operands with fp32 sums; a
+// (bf16 wgmma) from bf16 operands with fp32 sums; a warp shuffle
+// exchanges through a per-warp slot and a 32-thread barrier; a
 // TMA bulk copy is a memcpy that completes an atomic phase counter kept in
 // the mbarrier's 8 bytes; cp.async is a plain copy. Shared memory is
 // filled with NaN before each CTA, so a read of a value no thread wrote
@@ -66,6 +67,22 @@ struct Warpgroup {
   std::unique_ptr<std::barrier<>> bar;
 };
 static std::vector<Warpgroup>* g_groups;
+struct HostWarp {
+  float v[32];
+  std::unique_ptr<std::barrier<>> bar;
+};
+static std::vector<HostWarp>* g_warps;
+
+// The warp's lanes all call it together, as on the card.
+inline float __shfl_xor_sync(unsigned, float x, int lane_mask) {
+  HostWarp& w = (*g_warps)[t_thread / 32];
+  const int lane = t_thread % 32;
+  w.v[lane] = x;
+  w.bar->arrive_and_wait();
+  const float out = w.v[lane ^ lane_mask];
+  w.bar->arrive_and_wait();
+  return out;
+}
 
 namespace hopper_chain {
 void host_wgmma_tf32(float* d, int n, const uint32_t (&a)[4], const float* b,
@@ -196,6 +213,10 @@ struct HostLaunch {
           for (auto& g : groups)
             g.bar = std::make_unique<std::barrier<>>(n < 128 ? n : 128);
           g_groups = &groups;
+          std::vector<HostWarp> warps((n + 31) / 32);
+          for (auto& w : warps)
+            w.bar = std::make_unique<std::barrier<>>(n < 32 ? n : 32);
+          g_warps = &warps;
           std::vector<std::thread> threads;
           for (int t = 0; t < n; ++t)
             threads.emplace_back([&, t] {

@@ -344,8 +344,8 @@ def _library(name: str = "decoder_fused") -> ctypes.CDLL:
             lib.launch_decode_int_bwd.argtypes = [_P] * 12 + [_I] * 8 + [_P]
             lib.launch_decode_window_bwd.argtypes = ([_P] * 14 + [_I] * 8
                                                      + [_P])
-            lib.decoder_bwd_scratch_floats.argtypes = [_L, _I, _I]
-            lib.decoder_bwd_scratch_floats.restype = _L
+            lib.decoder_bwd_scratch_bytes.argtypes = [_L, _L] + [_I] * 5
+            lib.decoder_bwd_scratch_bytes.restype = _L
             fns = (lib.launch_decode_int_bwd, lib.launch_decode_window_bwd)
         for fn in fns:
             fn.restype = _I
@@ -561,12 +561,25 @@ def mma_b_slabs(w: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 5, 2, 6, 1, 7, 3, 8, 4).contiguous()
 
 
-def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
-                 params: dict, fwd_slabs) -> tuple:
+def bwd_scratch_bytes(n_query: int, n_pix: int, run: int, h: int,
+                      n_layers: int, dtype: torch.dtype,
+                      activations_only: bool = False) -> int:
+    """Bytes of scratch of one backward call (``decoder_bwd::
+    scratch_bytes``) for ``n_query`` queries reading ``n_pix`` LR pixels
+    in runs of ``run`` (s_h * s_w; 0 for a window), in ``dtype``'s
+    instance; ``activations_only``: its per-query sections alone."""
+    return _library("decoder_bwd").decoder_bwd_scratch_bytes(
+        n_query, n_pix, run, h, n_layers, int(dtype == torch.bfloat16),
+        int(activations_only))
+
+
+def _bwd_buffers(z: torch.Tensor, n_query: int, run: int, h: int,
+                 n_layers: int, params: dict, fwd_slabs) -> tuple:
     """dz (z's dtype), the flat fp32 weight-gradient vector with its
     per-key views (the layout of ``decoder_bwd::Plan``), the wgmma B slabs
     of [Wkq | Wq] (``fwd_slabs`` unless None) and of its transpose, and the
-    scratch buffer of one backward call."""
+    scratch buffer of one backward call (``run``: as ``bwd_scratch_bytes``).
+    """
     dev = z.device
     sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
              "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
@@ -577,9 +590,10 @@ def _bwd_buffers(z: torch.Tensor, n_query: int, h: int, n_layers: int,
         n = int(np.prod(shape))
         grads[k] = flat[at:at + n].view(shape)
         at += n
-    n_scratch = _library("decoder_bwd").decoder_bwd_scratch_floats(
-        n_query, h, n_layers)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    n_pix = z.shape[0] * z.shape[1] * z.shape[2]
+    scratch = torch.empty(bwd_scratch_bytes(n_query, n_pix, run, h,
+                                            n_layers, z.dtype),
+                          dtype=torch.uint8, device=dev)
     wcat = params["wcat"].detach()
     slabs = (forward_slabs(wcat) if fwd_slabs is None else fwd_slabs,
              mma_b_slabs(chain_b_operands(wcat)[1]))
@@ -606,7 +620,7 @@ def decode_int_bwd(z: torch.Tensor, syn: torch.Tensor, s_h: int, s_w: int,
     h, n_layers = _check_common(z, syn, params, (h_out, w_out))
     _check_grad(g, z, (b, h_out, w_out, 3))
     dz, flat, grads, slabs, scratch = _bwd_buffers(
-        z, b * h_out * w_out, h, n_layers, params, slabs)
+        z, b * h_out * w_out, s_h * s_w, h, n_layers, params, slabs)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_int_bwd(
             z.data_ptr(), syn.data_ptr(), *_bwd_weights(params, slabs),
@@ -632,7 +646,7 @@ def decode_window_bwd(z: torch.Tensor, syn: torch.Tensor, rows, cols,
     h, n_layers = _check_common(z, syn, params, (h_win, w_win))
     _check_grad(g, z, (b, h_win, w_win, 3))
     dz, flat, grads, slabs, scratch = _bwd_buffers(
-        z, b * h_win * w_win, h, n_layers, params, slabs)
+        z, b * h_win * w_win, 0, h, n_layers, params, slabs)
     with torch.cuda.device(z.device):
         rc = _library("decoder_bwd").launch_decode_window_bwd(
             z.data_ptr(), syn.data_ptr(), rows.data_ptr(),
