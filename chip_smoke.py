@@ -14,9 +14,11 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    ``build/tpu_diinn_torch/``), with ``ptxas`` registers and spills and,
    from ``cuobjdump -sass``, each kernel's count of tensor-core (``HMMA``,
    ``HGMMA``) and fp32 ``FFMA`` instructions; every instance of the
-   forward kernel must show ``HGMMA``, and the backward's chain and
-   weight-gradient kernels tensor-core instructions; every bf16 instance
-   of the three (``<...,Bf16>``) must show ``HGMMA``;
+   forward kernels (``decode_fwd_kernel``, fp32, and the bf16 mode's own
+   ``decode_fwd_bf16_kernel``) must show ``HGMMA``, and the backward's
+   chain and weight-gradient kernels tensor-core instructions; every bf16
+   instance of them (``<...,Bf16>`` or a ``_bf16_kernel``) must show
+   ``HGMMA``;
 3. kernels: the eval kernels at flagship widths (hidden 256, L = 4, fp32)
    on main-path shapes (``decode_window_fwd`` also at the x20 streaming
    band: LR 256x256, one 32x5120 band; both also at the bucketed eval's
@@ -272,6 +274,17 @@ SOURCES = {"decode_int_fwd": "tpu_diinn_torch/csrc/decoder_fused.cu",
            "decode_window_fwd": "tpu_diinn_torch/csrc/decoder_fused.cu",
            "decode_int_bwd": "tpu_diinn_torch/csrc/decoder_bwd.cu",
            "decode_window_bwd": "tpu_diinn_torch/csrc/decoder_bwd.cu"}
+# the bf16 forwards' own kernel (decoder_fused.cu includes it)
+FWD_BF16_SOURCE = "tpu_diinn_torch/csrc/decoder_fwd_bf16.cuh"
+# the device kernel each launch key runs
+DEVICE_KERNEL = {"decode_int_fwd": "decode_fwd_kernel",
+                 "decode_window_fwd": "decode_fwd_kernel",
+                 "decode_int_fwd_bf16": "decode_fwd_bf16_kernel",
+                 "decode_window_fwd_bf16": "decode_fwd_bf16_kernel",
+                 "decode_int_bwd": "decode_bwd_chain_kernel",
+                 "decode_window_bwd": "decode_bwd_chain_kernel",
+                 "decode_int_bwd_bf16": "decode_bwd_chain_bf16_kernel",
+                 "decode_window_bwd_bf16": "decode_bwd_chain_bf16_kernel"}
 _PALLAS = "tpu_diinn/kernels/decoder_fused.py"
 REPLACES = {"decode_int_fwd": f"{_PALLAS}:732; {_PALLAS}:280",
             "decode_window_fwd": f"{_PALLAS}:236",
@@ -511,11 +524,16 @@ def kernel_name(mangled: str) -> str:
     ``decode_bwd_chain_bf16_kernel<8,0,1>`` from its mangled name: the
     length-prefixed name that ends in ``_kernel``, and its template
     arguments (integers, and the precision policy, hopper_chain::Tf32 or
-    Bf16)."""
+    Bf16). A length prefix may follow digits of the name before it
+    (``16decoder_fwd_bf1622decode_fwd_bf16_kernel``), so every tail of a
+    run of digits is tried."""
     for m in re.finditer(r"(\d+)", mangled):
         at = m.end()
-        name = mangled[at:at + int(m.group(1))]
-        if not re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+        for k in range(len(m.group(1))):
+            name = mangled[at:at + int(m.group(1)[k:])]
+            if re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+                break
+        else:
             continue
         args = re.match(r"(?:I(?:L[a-z]+\d+E|N12hopper_chain4(?:Tf32|Bf16)"
                         r"E)+E)?", mangled[at + len(name):]).group(0)
@@ -2717,11 +2735,11 @@ def device_launches(run) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if "decode_fwd_kernel<" not in e.key:
+        m = re.search(r"decode_fwd(_bf16)?_kernel<\d+, (true|false)", e.key)
+        if m is None:
             continue
-        targs = e.key.split("decode_fwd_kernel<", 1)[1]
-        name = FWD[1] if ", true," in targs else FWD[0]
-        if "Bf16" in targs:
+        name = FWD[1] if m.group(2) == "true" else FWD[0]
+        if m.group(1):
             name = K.launch_key(name, BF16)
         out[name] = out.get(name, 0) + e.count
     return out
@@ -2825,7 +2843,7 @@ def main(argv: list) -> int:
             # kernel name prefixes: every instance has tensor-core
             # instructions, every bf16 one (a Bf16 policy argument, or the
             # backward's own bf16 kernels) HGMMA
-            need = {"decoder_fused": (("decode_fwd_kernel", ("HGMMA",)),),
+            need = {"decoder_fused": (("decode_fwd", ("HGMMA",)),),
                     "decoder_bwd": (("decode_bwd_chain", ("HMMA", "HGMMA")),
                                     ("wgrad", ("HMMA", "HGMMA")))}
             for kern, ops in need[name]:
@@ -2911,7 +2929,11 @@ def main(argv: list) -> int:
         rs = checks[key]
         first = rs[0]
         entry = {
-            "name": key, "route": "cuda", "source": SOURCES[name],
+            "name": key, "route": "cuda",
+            "source": (FWD_BF16_SOURCE if key in ("decode_int_fwd_bf16",
+                                                  "decode_window_fwd_bf16")
+                       else SOURCES[name]),
+            "kernel": DEVICE_KERNEL[key],
             "replaces": REPLACES[name],
             "dtype": "bfloat16" if key.endswith("_bf16") else "float32",
             "launches": sum(c[key] for c in by_path.values()),

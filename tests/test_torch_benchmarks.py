@@ -84,6 +84,8 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.native.loader", "tpu_diinn_torch.parallel.mesh",
         "tpu_diinn_torch.parallel.sharding", "tpu_diinn_torch.parallel.launch",
         "tpu_diinn_torch.nn.masking", "tpu_diinn_torch.train.bucketed",
+        "tpu_diinn_torch.tools.fwd_compare",
+        "tpu_diinn_torch.tools.chain_split",
         "tests.torch_parallel_ranks", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

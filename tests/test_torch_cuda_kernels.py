@@ -440,6 +440,45 @@ def test_decode_window_fwd_bf16_matches_plain(hidden):
     _close_bf16(got, K.decode_window_fwd_ref(z, syn, rows, cols, p), 2e-2)
 
 
+@pytest.mark.parametrize("window", [False, True])
+def test_bf16_forward_runs_its_own_kernel_on_a_persistent_grid(window):
+    """Both bf16 forward routes launch ``decode_fwd_bf16_kernel`` (counted
+    in the device's own records) and no ``decode_fwd_kernel``. At hidden
+    256 with more 128-query tiles than the card has SMs (B 2, LR 48 x4:
+    288 tiles; the persistent grid's walk wraps) the output is within the
+    plain bf16 version's tolerance above, finite, and two calls agree bit
+    for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _device()
+    gen = torch.Generator().manual_seed(7)
+    h_in, s = 48, 4
+    z, p = _as_bf16(torch.randn((2, h_in, h_in, 4 * 256),
+                                generator=gen).to(dev),
+                    _params(256, 4, gen, dev))
+    h_out = h_in * s
+    syn = grids.syn_input_grid((h_in, h_in), (h_out, h_out), dtype=BF16,
+                               device=dev).float()
+    if window:
+        idx = np.arange(h_out) // s
+        iv = K.index_vector(idx, h_in, dev)
+        run = lambda: K.decode_window_fwd(z, syn, iv, iv, p)    # noqa: E731
+        want = K.decode_window_fwd_ref(z, syn, idx, idx, p)
+    else:
+        run = lambda: K.decode_int_fwd(z, syn, s, s, p)         # noqa: E731
+        want = K.decode_int_fwd_ref(z, syn, s, s, p)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert sum(e.count for e in prof.key_averages()
+               if "decode_fwd_bf16_kernel<" in e.key) == 1, names
+    assert not any("decode_fwd_kernel<" in k for k in names), names
+    assert torch.isfinite(got).all()
+    _close_bf16(got, want, 2e-2)
+    assert torch.equal(got, run())
+
+
 def _bwd_case_bf16(hidden, n_layers, b, lr, out_hw, window, seed):
     z, syn, rows, cols, p, _ = _bwd_case(hidden, n_layers, b, lr, out_hw,
                                          window, seed)

@@ -1,5 +1,7 @@
-"""The port's binding of the native C++ loader (``native/loader.cc``)
-against the port's Python path and against ``tpu_diinn.native.loader``.
+"""The port's binding of its native C++ loader
+(``tpu_diinn_torch/csrc/loader.cc``, a copy of the JAX package's
+``native/loader.cc``) against the port's Python path and against
+``tpu_diinn.native.loader``.
 
 Tolerances are the JAX package's own (``tests/test_native_loader.py``):
 decode exact, resize 1e-4, sample_patch 1e-6, dataset samples 1e-5,
@@ -8,6 +10,8 @@ into another library, with the same inputs) every function is exact.
 Samples come from committed images under ``data/``.
 """
 
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +26,7 @@ from tpu_diinn_torch.data.png import read_png
 from tpu_diinn_torch.native import loader as nl
 
 REPO = Path(__file__).resolve().parents[1]
+JPEG = REPO / "tpu_diinn_torch/testdata/set5_img0000_q90.jpg"
 IMAGES = [REPO / "data/DIV2K/DIV2K_train_HR/0000.png",
           REPO / "data/benchmark/Set5/HR/img0002.png"]
 DIV2K = dict(root=str(REPO / "data"), name="DIV2K", split="train",
@@ -53,6 +58,58 @@ def test_builds_its_own_library():
     assert path.exists()
     assert path.parent.parent == REPO / "build" / "tpu_diinn_torch"
     assert path.name != "libtpudiinn_loader.so"
+
+
+def test_builds_from_the_ports_own_source():
+    """The library is compiled from the port's copy of the source, not
+    from the JAX package's file."""
+    assert nl.SOURCE == REPO / "tpu_diinn_torch" / "csrc" / "loader.cc"
+    assert nl.SOURCE.exists()
+    assert REPO / "native" / "loader.cc" != nl.SOURCE
+
+
+_CORRUPT_JPEG = r"""
+import sys
+from tpu_diinn_torch.native import loader as nl
+path = sys.argv[1]
+for fn in (nl.image_size, nl.decode_image):
+    try:
+        fn(path)
+    except OSError:
+        continue
+    raise SystemExit(f"{fn.__name__} did not raise")
+try:
+    nl.sample_batch([path], [0], [0], 8, 4, [0], [0], [0], n_threads=1)
+except OSError:
+    print("raised")
+"""
+
+
+@pytest.mark.parametrize("body", [b"\x00" * 64, bytes(range(256)) * 4],
+                         ids=["zeros", "ramp"])
+def test_corrupt_jpeg_raises_and_the_process_goes_on(tmp_path, body):
+    """A file with JPEG's magic bytes and a body libjpeg cannot decode
+    raises in every entry point; the process that called them exits 0
+    (libjpeg's default error handler would end it)."""
+    path = tmp_path / "corrupt.jpg"
+    path.write_bytes(b"\xff\xd8\xff\xe0" + body)
+    out = subprocess.run([sys.executable, "-c", _CORRUPT_JPEG, str(path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "raised"
+
+
+def test_committed_jpeg_decodes_as_before():
+    """The committed JPEG decodes to the JAX binding's bytes (built from
+    the unchanged ``native/loader.cc``) and to PIL's within libjpeg's
+    version wiggle."""
+    from PIL import Image
+    got = nl.decode_image(str(JPEG))
+    np.testing.assert_array_equal(got, jnl.decode_image(str(JPEG)))
+    assert nl.image_size(str(JPEG)) == got.shape[:2] == (256, 256)
+    want = np.asarray(Image.open(JPEG).convert("RGB"))
+    assert np.mean(np.abs(got.astype(int) - want.astype(int))) < 2.0
 
 
 @pytest.mark.parametrize("path", IMAGES, ids=lambda p: p.name)

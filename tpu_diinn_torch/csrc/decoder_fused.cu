@@ -38,7 +38,12 @@
 // mode: z, W0, [Wkq | Wq] and Wl in bf16, biases, syn and out fp32; q is
 // rounded to bf16 before every product (the head's too) and each product
 // is one wgmma BF16 per k16 step with fp32 sums (989 TFLOP/s peak); the
-// elementwise work stays fp32.
+// elementwise work stays fp32. They have a kernel of their own, designed
+// for bf16 (decoder_fwd_bf16.cuh: 128-query tiles of two warpgroups on one
+// shared weight ring fed by a producer warp, A from shared memory, the
+// warpgroups' epilogues ping-ponged with their products, a persistent
+// grid), bit-identical to the chain routine's bf16 forward
+// (decode_fwd_kernel in the Bf16 policy), which the backward recomputes.
 //
 // Interface: plain C, loaded with ctypes. Each launcher runs on the
 // caller's current device (the Python wrapper selects the tensors' device
@@ -48,28 +53,30 @@
 #include <cuda_runtime.h>
 
 #include "decoder_fused.cuh"
+#include "decoder_fwd_bf16.cuh"
 
 namespace decoder_fused {
 
-template <bool kWindow, class P>
-static int launch(const void* z_, const float* syn, const int* rows,
-                  const int* cols, const void* w0_, const float* b0,
-                  const void* wslab_, const float* bcat, const void* wl_,
-                  const float* bl, float* out, int batch, int h_in, int w_in,
-                  int h_out, int w_out, int s_h, int s_w, int hidden,
-                  int n_layers, cudaStream_t stream) {
-  using Z = typename P::Z;
-  using W = typename P::W;
-  const Z* z = static_cast<const Z*>(z_);
-  const W* w0 = static_cast<const W*>(w0_);
-  const W* wslab = static_cast<const W*>(wslab_);
-  const W* wl = static_cast<const W*>(wl_);
+// The fp32 instances.
+template <bool kWindow>
+static int launch_fp32(const void* z_, const float* syn, const int* rows,
+                       const int* cols, const void* w0_, const float* b0,
+                       const void* wslab_, const float* bcat,
+                       const void* wl_, const float* bl, float* out,
+                       int batch, int h_in, int w_in, int h_out, int w_out,
+                       int s_h, int s_w, int hidden, int n_layers,
+                       cudaStream_t stream) {
+  const float* z = static_cast<const float*>(z_);
+  const float* w0 = static_cast<const float*>(w0_);
+  const float* wslab = static_cast<const float*>(wslab_);
+  const float* wl = static_cast<const float*>(wl_);
   CudaLaunch launcher{stream};
 #define DECODER_FUSED_CASE(NC)                                              \
   case NC:                                                                  \
-    return run_fwd<NC, kWindow, P>(launcher, z, syn, rows, cols, w0, b0,    \
-                                   wslab, bcat, wl, bl, out, batch, h_in,   \
-                                   w_in, h_out, w_out, s_h, s_w, n_layers);
+    return run_fwd<NC, kWindow, Tf32>(launcher, z, syn, rows, cols, w0, b0, \
+                                      wslab, bcat, wl, bl, out, batch,      \
+                                      h_in, w_in, h_out, w_out, s_h, s_w,   \
+                                      n_layers);
   // hidden 32, 64, 256 (the widths a config or test uses): one
   // instantiation each keeps the build short
   switch (hidden % 32 == 0 ? hidden / 32 : 0) {
@@ -82,6 +89,42 @@ static int launch(const void* z_, const float* syn, const int* rows,
 #undef DECODER_FUSED_CASE
 }
 
+// The bf16 instances: decoder_fwd_bf16.cuh's kernel, a persistent grid of
+// one CTA an SM.
+template <bool kWindow>
+static int launch_bf16(const void* z_, const float* syn, const int* rows,
+                       const int* cols, const void* w0_, const float* b0,
+                       const void* wslab_, const float* bcat,
+                       const void* wl_, const float* bl, float* out,
+                       int batch, int h_in, int w_in, int h_out, int w_out,
+                       int s_h, int s_w, int hidden, int n_layers,
+                       cudaStream_t stream) {
+  using U = uint16_t;
+  const U* z = static_cast<const U*>(z_);
+  const U* w0 = static_cast<const U*>(w0_);
+  const U* wslab = static_cast<const U*>(wslab_);
+  const U* wl = static_cast<const U*>(wl_);
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  CudaLaunch launcher{stream};
+#define DECODER_FWD_BF16_CASE(NC)                                           \
+  case NC:                                                                  \
+    return decoder_fwd_bf16::run_fwd_bf16<NC, kWindow>(                     \
+        launcher, z, syn, rows, cols, w0, b0, wslab, bcat, wl, bl, out,     \
+        batch, h_in, w_in, h_out, w_out, s_h, s_w, n_layers, n_sm);
+  switch (hidden % 32 == 0 ? hidden / 32 : 0) {
+    DECODER_FWD_BF16_CASE(1)
+    DECODER_FWD_BF16_CASE(2)
+    DECODER_FWD_BF16_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DECODER_FWD_BF16_CASE
+}
+
 template <bool kWindow>
 static int launch_prec(int bf16, const void* z, const float* syn,
                        const int* rows, const int* cols, const void* w0,
@@ -90,14 +133,14 @@ static int launch_prec(int bf16, const void* z, const float* syn,
                        int batch, int h_in, int w_in, int h_out, int w_out,
                        int s_h, int s_w, int hidden, int n_layers,
                        cudaStream_t stream) {
-  return bf16 ? launch<kWindow, Bf16>(z, syn, rows, cols, w0, b0, wslab, bcat,
-                                      wl, bl, out, batch, h_in, w_in, h_out,
-                                      w_out, s_h, s_w, hidden, n_layers,
-                                      stream)
-              : launch<kWindow, Tf32>(z, syn, rows, cols, w0, b0, wslab, bcat,
-                                      wl, bl, out, batch, h_in, w_in, h_out,
-                                      w_out, s_h, s_w, hidden, n_layers,
-                                      stream);
+  return bf16 ? launch_bf16<kWindow>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                     wl, bl, out, batch, h_in, w_in, h_out,
+                                     w_out, s_h, s_w, hidden, n_layers,
+                                     stream)
+              : launch_fp32<kWindow>(z, syn, rows, cols, w0, b0, wslab, bcat,
+                                     wl, bl, out, batch, h_in, w_in, h_out,
+                                     w_out, s_h, s_w, hidden, n_layers,
+                                     stream);
 }
 
 }  // namespace decoder_fused

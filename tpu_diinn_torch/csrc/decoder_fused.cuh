@@ -1,5 +1,8 @@
 // Device code of the fused DIINN mode-3 decoder forward on the tensor
-// cores (sm_90a), in fp32 accuracy (Tf32) or the bf16 mode (Bf16).
+// cores (sm_90a), in fp32 accuracy (Tf32) or the bf16 mode (Bf16). The
+// card runs its Tf32 instances; the bf16 mode runs decoder_fwd_bf16.cuh's
+// kernel, which computes the same numbers as the Bf16 instance here (the
+// host tests hold the two bit for bit).
 //
 // Both kernels of decoder_fused.cu run, per tile of kTileM HR queries, the
 // chain of hopper_chain.cuh (chain_forward: layer 0 elementwise, layers

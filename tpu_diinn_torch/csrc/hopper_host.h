@@ -17,6 +17,13 @@
 // the mbarrier's 8 bytes; cp.async is a plain copy. Shared memory is
 // filled with NaN before each CTA, so a read of a value no thread wrote
 // shows up in the result.
+//
+// For decoder_fwd_bf16.cuh: wgmma with A from shared memory runs when the
+// warpgroup waits for its group (wgmma's reads are asynchronous until then,
+// so a kernel that lets a slot or a tile be overwritten too early reads the
+// new bytes here); an mbarrier counts arrivals up to its count (phase
+// counter, arrivals and count share its 8 bytes); a named barrier counts
+// the arrivals of its current generation; gridDim is the launch's grid.
 
 #pragma once
 
@@ -28,6 +35,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <condition_variable>
+#include <mutex>
 #include <new>
 #include <string>
 #include <thread>
@@ -43,12 +52,15 @@ struct float2 {
 struct float4 {
   float x, y, z, w;
 };
+struct uint4 {
+  uint32_t x, y, z, w;
+};
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 thread_local dim3 threadIdx, blockIdx;
-static dim3 blockDim;
+static dim3 blockDim, gridDim;
 #define __global__
 #define __device__
 #define __host__
@@ -93,6 +105,12 @@ void host_mbar_init(uint64_t* bar, int count);
 void host_mbar_wait(uint64_t* bar, uint32_t parity);
 void host_bulk_load(void* dst, const void* src, uint32_t bytes,
                     uint64_t* bar);
+void host_wgmma_bf16_ss(float* d, int n, const uint16_t* a,
+                        const uint16_t* b);
+void host_wgmma_commit();
+void host_wgmma_wait(int pending);
+void host_mbar_arrive(uint64_t* bar);
+void host_bar_sync(int id, int count);
 
 static float tf32(uint32_t u) {
   u &= 0xffffe000u;
@@ -174,7 +192,25 @@ void host_wgmma_bf16(float* d, int n, const uint32_t (&a)[4],
   for (int i = 0; i < n / 2; ++i) d[i] = out[i];
 }
 
-void host_mbar_init(uint64_t* bar, int) { new (bar) std::atomic<uint64_t>(0); }
+// An mbarrier's 8 bytes: completed phases (bits 0-31), arrivals in the
+// current phase (32-47), the count that completes it (48-63).
+void host_mbar_init(uint64_t* bar, int count) {
+  new (bar) std::atomic<uint64_t>(static_cast<uint64_t>(count) << 48);
+}
+
+void host_mbar_arrive(uint64_t* bar) {
+  auto* v = reinterpret_cast<std::atomic<uint64_t>*>(bar);
+  uint64_t old = v->load();
+  for (;;) {
+    const uint64_t count = old >> 48;
+    const uint64_t arrived = ((old >> 32) & 0xffffu) + 1;
+    const uint64_t phase = old & 0xffffffffu;
+    const uint64_t next = arrived == count
+                              ? (count << 48) | (phase + 1)
+                              : (count << 48) | (arrived << 32) | phase;
+    if (v->compare_exchange_weak(old, next)) return;
+  }
+}
 
 void host_mbar_wait(uint64_t* bar, uint32_t parity) {
   auto* phase = reinterpret_cast<std::atomic<uint64_t>*>(bar);
@@ -185,6 +221,96 @@ void host_bulk_load(void* dst, const void* src, uint32_t bytes,
                     uint64_t* bar) {
   memcpy(dst, src, bytes);
   reinterpret_cast<std::atomic<uint64_t>*>(bar)->fetch_add(1);
+}
+
+// wgmma with A from shared memory, queued until the thread waits: one
+// k16 step, A a 64 x 16 block and B an N x 16 slab in the K-major layout
+// of core matrices (8 rows x 8 values; the two k halves 64 values apart,
+// 8-row groups 128 apart), fp32 sums in k order, as host_wgmma_bf16.
+struct SsOp {
+  float* d;
+  int n;
+  const uint16_t* a;
+  const uint16_t* b;
+};
+thread_local std::vector<SsOp> t_ss_open;
+thread_local std::vector<std::vector<SsOp>> t_ss_groups;
+
+static void run_ss(const SsOp& op) {
+  const int t = t_thread % 128;
+  const int w = t / 32, gid = (t % 32) >> 2, tig = t & 3;
+  for (int i = 0; i < op.n / 8; ++i)
+    for (int c = 0; c < 4; ++c) {
+      const int row = 16 * w + gid + 8 * (c >> 1);
+      const int col = 8 * i + 2 * tig + (c & 1);
+      float acc = op.d[4 * i + c];
+      for (int k = 0; k < 16; ++k) {
+        const float av = bf16_value(
+            op.a[(row / 8) * 128 + (k / 8) * 64 + (row % 8) * 8 + (k & 7)]);
+        const float bv = bf16_value(
+            op.b[(col / 8) * 128 + (k / 8) * 64 + (col % 8) * 8 + (k & 7)]);
+        acc += av * bv;
+      }
+      op.d[4 * i + c] = acc;
+    }
+}
+
+void host_wgmma_bf16_ss(float* d, int n, const uint16_t* a,
+                        const uint16_t* b) {
+  t_ss_open.push_back({d, n, a, b});
+}
+
+void host_wgmma_commit() {
+  t_ss_groups.push_back(std::move(t_ss_open));
+  t_ss_open.clear();
+}
+
+// wgmma.wait_group is warpgroup-wide: the group runs once all 128 threads
+// have issued it, and no thread goes on before every thread has run it
+// (so that no thread releases a slot that another still reads).
+void host_wgmma_wait(int pending) {
+  while (static_cast<int>(t_ss_groups.size()) > pending) {
+    Warpgroup& g = (*g_groups)[t_thread / 128];
+    g.bar->arrive_and_wait();
+    for (const SsOp& op : t_ss_groups.front()) run_ss(op);
+    t_ss_groups.erase(t_ss_groups.begin());
+    g.bar->arrive_and_wait();
+  }
+}
+
+// Named barriers (bar.sync): a generation counter and the arrivals in the
+// current generation, which completes at `count` arrivals (made at first
+// use in a CTA).
+struct NamedBar {
+  std::mutex mu;
+  std::condition_variable cv;
+  int arrived = 0;
+  uint64_t generation = 0;
+};
+struct NamedBars {
+  std::mutex mu;
+  std::unique_ptr<NamedBar> bar[16];
+};
+static NamedBars* g_named;
+
+static NamedBar& named_bar(int id) {
+  std::lock_guard<std::mutex> lock(g_named->mu);
+  auto& b = g_named->bar[id];
+  if (!b) b = std::make_unique<NamedBar>();
+  return *b;
+}
+
+void host_bar_sync(int id, int count) {
+  NamedBar& b = named_bar(id);
+  std::unique_lock<std::mutex> lock(b.mu);
+  const uint64_t g = b.generation;
+  if (++b.arrived == count) {
+    b.arrived = 0;
+    ++b.generation;
+    b.cv.notify_all();
+  } else {
+    b.cv.wait(lock, [&] { return b.generation != g; });
+  }
 }
 
 }  // namespace hopper_chain
@@ -203,6 +329,7 @@ struct HostLaunch {
     if (smem_bytes > static_cast<int>(kHostSmem)) return 1;
     const int n = block.x * block.y * block.z;
     blockDim = block;
+    gridDim = grid;
     for (unsigned bz = 0; bz < grid.z; ++bz)
       for (unsigned by = 0; by < grid.y; ++by)
         for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -217,6 +344,8 @@ struct HostLaunch {
           for (auto& w : warps)
             w.bar = std::make_unique<std::barrier<>>(n < 32 ? n : 32);
           g_warps = &warps;
+          hopper_chain::NamedBars named;
+          hopper_chain::g_named = &named;
           std::vector<std::thread> threads;
           for (int t = 0; t < n; ++t)
             threads.emplace_back([&, t] {

@@ -34,6 +34,7 @@ BUILD_ROOT = _PKG.parent / "build" / "tpu_diinn_torch"
 # part of the build's content hash
 SOURCES = {
     "decoder_fused": ("decoder_fused.cu", ("decoder_fused.cuh",
+                                           "decoder_fwd_bf16.cuh",
                                            "hopper_chain.cuh")),
     "decoder_bwd": ("decoder_bwd.cu", ("decoder_bwd.cuh",
                                        "hopper_chain.cuh")),

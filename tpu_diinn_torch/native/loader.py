@@ -1,10 +1,13 @@
-"""ctypes binding of the native C++ data loader (``native/loader.cc``).
+"""ctypes binding of the port's native C++ data loader
+(``tpu_diinn_torch/csrc/loader.cc``).
 
-Counterpart of ``tpu_diinn/native/loader.py``, with its own build: at first
-use the source is compiled with
+Counterpart of ``tpu_diinn/native/loader.py``, with its own source (a copy
+of the JAX package's ``native/loader.cc`` that returns an error for a JPEG
+libjpeg cannot decode) and its own build: at first use the source is
+compiled with
 
-    g++ -O3 -march=native -shared -fPIC -std=c++17 native/loader.cc
-        -lpng -ljpeg -lz -pthread
+    g++ -O3 -march=native -shared -fPIC -std=c++17
+        tpu_diinn_torch/csrc/loader.cc -lpng -ljpeg -lz -pthread
 
 into ``build/tpu_diinn_torch/loader-<sha1 of the source and flags>/
 libtpudiinn_torch_loader.so`` under the checkout root (written under a
@@ -20,9 +23,10 @@ The functions are the JAX binding's: ``image_size``, ``decode_image``
 convention), ``sample_patch`` (crop, downsample, shared flips, scaled to
 [0, 1]) and ``sample_batch`` (``sample_patch`` over files on
 ``n_threads`` std::threads). ctypes releases the GIL around every call.
-Nothing here runs at import time. A JPEG that libjpeg cannot decode ends
-the process: ``loader.cc`` keeps libjpeg's default error handler, whose
-``error_exit`` calls ``exit()`` (a malformed PNG returns an error).
+Nothing here runs at import time. A PNG or JPEG that its library cannot
+decode raises ``IOError`` (``loader.cc`` gives libjpeg an ``error_exit``
+that returns to the decode, where libjpeg's default would end the
+process).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "native" / "loader.cc"
+SOURCE = _ROOT / "tpu_diinn_torch" / "csrc" / "loader.cc"
 BUILD_ROOT = _ROOT / "build" / "tpu_diinn_torch"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-lpng", "-ljpeg", "-lz", "-pthread")

@@ -3,7 +3,7 @@
     git archive <commit> tpu_diinn_torch | tar -x -C build/tree
     python3 -m tpu_diinn_torch.tools.chain_split build/tree [--scale 4]
         [--cuts fwd_stores,fwd_only,no_mma,no_refill,no_mma+no_refill]
-        [--dtype bfloat16]
+        [--dtype bfloat16] [--route bwd|fwd]
 
 Runs the tree, and for each cut a copy of ``<tree>/tpu_diinn_torch``
 beside it with one piece of its device code taken out:
@@ -30,14 +30,34 @@ beside it with one piece of its device code taken out:
 - ``bf16_plain_stores``: not a cut: its scratch rows go out by plain
   stores, not streaming ones (``store16``).
 
+With ``--route fwd`` the runs time the forward alone, and the cuts are
+the bf16 forward's (``--dtype bfloat16``), each made in whichever design
+the tree has: ``csrc/decoder_fwd_bf16.cuh``'s kernel where the tree has
+that file, else the chain routine that ``decode_fwd_kernel`` runs
+(``hopper_chain.cuh``, ``decoder_fused.cuh``; the design before it):
+
+- ``fwd_no_refill``: only the first ring of weight slabs is loaded; every
+  later k step reads those slots again (no TMA traffic after them);
+- ``fwd_no_mma``: no wgmma is issued; the loads and waits stay;
+- ``fwd_no_sine``: the epilogues (layer 0's too) multiply k by a, not
+  by sin(a): the polynomial sine goes, the rest of the epilogue stays;
+- ``fwd_no_zload``: the epilogues of layers 1..L-1 read no z (each
+  element adds 1 in its place): their loads' latency goes;
+- ``fwd_no_head``: no head (no output written).
+
 A run may join cuts with ``+``. Each tree runs in its own process (it
-builds its own libraries) on the flagship training shape (B 4, LR 48,
-hidden 256, L = 4, seeded weights), in fp32 or (``--dtype bfloat16``)
-the bf16 instances, and prints one JSON line: the card's
-name and power limit, CUDA-event milliseconds per call of
-``decode_int_fwd`` and ``decode_int_bwd``, and ``torch.profiler`` device
-milliseconds per call by kernel. The cut copies compute nothing usable;
-they exist only to split the kernels' time. Needs a CUDA card and
+builds its own libraries; the cut copies' builds run in parallel first) on
+the flagship training shape (B 4, LR 48, hidden 256, L = 4, seeded
+weights), in fp32 or (``--dtype bfloat16``) the bf16 instances, and prints
+one JSON line: the card's name and power limit, CUDA-event milliseconds
+per call of ``decode_int_fwd`` and ``decode_int_bwd`` (route fwd: of
+``decode_int_fwd`` as the smoke calls it, the weight slabs made in the
+call, and of ``decode_int_fwd_slabs``, the slabs made beforehand), and
+``torch.profiler`` device milliseconds per call by kernel; route fwd adds
+ptxas's registers and spills of the forward kernels and their HGMMA and
+fp32-pipe instruction counts (FFMA, FADD, FMUL, FMNMX, FRND) from
+``cuobjdump -sass``. The cut copies compute nothing
+usable; they exist only to split the kernels' time. Needs a CUDA card and
 ``nvcc``.
 """
 
@@ -64,7 +84,7 @@ _WAIT = """      mbar_wait(bars + slot, (phase >> slot) & 1u);
 _REFILL = "        if (s + u + kStages < kSteps)"
 
 _RUN = r"""
-import json, math, subprocess, sys
+import json, math, re, shutil, subprocess, sys
 import torch
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.kernels import decoder_fused as K
@@ -72,6 +92,7 @@ from torch.profiler import ProfilerActivity, profile
 
 scale, variant = int(sys.argv[1]), sys.argv[2]
 dtype = getattr(torch, sys.argv[3])
+route = sys.argv[4]
 dev = torch.device("cuda", 0)
 gen = torch.Generator().manual_seed(1)
 h, n, b, h_in = 256, 4, 4, 48
@@ -89,6 +110,32 @@ calls = {"decode_int_bwd": lambda: K.decode_int_bwd(z, syn, scale, scale,
                                                     p, g),
          "decode_int_fwd": lambda: K.decode_int_fwd(z, syn, scale, scale,
                                                     p)}
+info = {}
+if route == "fwd":
+    slabs = K.forward_slabs(p["wcat"])
+    del calls["decode_int_bwd"]
+    calls["decode_int_fwd_slabs"] = lambda: K.decode_int_fwd(
+        z, syn, scale, scale, p, slabs)
+    from tpu_diinn_torch.kernels import build
+    build.load("decoder_fused")
+    info["ptxas"] = [ln.strip() for ln in build.build_info["decoder_fused"]
+                     ["log"].splitlines() if "decode_fwd" in ln
+                     or "registers" in ln or "spill" in ln]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("decoder_fused"))],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "FFMA": 0, "FADD": 0, "FMUL": 0,
+                          "FMNMX": 0, "FRND": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    info["sass_counts"] = counts
 def event_ms(fn, reps=10):
     fn(); torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -117,8 +164,8 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
 print(json.dumps({"variant": variant, "card": smi, "scale": scale,
                   "dtype": sys.argv[3],
                   "shape": f"B {b} LR {h_in}x{h_in} x{scale}",
-                  "event_ms": ms, "profiler_ms_by_kernel": by_kernel}),
-      flush=True)
+                  "event_ms": ms, "profiler_ms_by_kernel": by_kernel,
+                  **info}), flush=True)
 """
 
 
@@ -197,17 +244,80 @@ CUTS = {"fwd_stores": ("decoder_bwd.cuh", lambda t: _cut_bwd(t, True)),
             "  *reinterpret_cast<float4*>(p) = v;"))}
 
 
+# the bf16 forward's cuts: (the new kernel's header and patch, the chain
+# routine's header and patch)
+_FWD_HEADER = "decoder_fwd_bf16.cuh"
+FWD_CUTS = {
+    "fwd_no_refill": (
+        lambda t: _replace(
+            "              mbar_wait_loop(empty + slot, ((n / T::kRing) & 1u) "
+            "^ 1u);\n",
+            "              if (n >= T::kRing) break;\n"
+            "              mbar_wait_loop(empty + slot, ((n / T::kRing) & 1u) "
+            "^ 1u);\n")(_replace(
+                "            mbar_wait_loop(full + (ns & (T::kRing - 1)),",
+                "            if (ns < T::kRing) mbar_wait_loop(full + (ns & "
+                "(T::kRing - 1)),")(t)),
+        ("hopper_chain.cuh", _no_refill)),
+    "fwd_no_mma": (
+        _replace("            wgmma_ss<T::kNF>(acc, q + s * 1024,\n"
+                 "                             ring + ((n + s) & (T::kRing - "
+                 "1)) * T::kSlab);", "            ;"),
+        ("hopper_chain.cuh", _no_mma)),
+    "fwd_no_sine": (
+        lambda t: t.replace("pack_bf16(k0 * poly_sin(a0), k1 * poly_sin(a1))",
+                            "pack_bf16(k0 * a0, k1 * a1)"),
+        ("hopper_chain.cuh",
+         lambda t: t.replace("P::round(k0 * poly_sin(a0))",
+                             "P::round(k0 * a0)")
+         .replace("P::round(k1 * poly_sin(a1))", "P::round(k1 * a1)"))),
+    "fwd_no_zload": (
+        _replace("zz[i][hh] = *reinterpret_cast<const uint32_t*>(\n"
+                 "                z + zrow[hh] + layer * kHidden + j0 + 8 * i);",
+                 "zz[i][hh] = 0x3f803f80u;"),
+        ("hopper_chain.cuh", _replace(
+            "          zz[i][hh] = P::load_z2(z + zrow[hh] + layer * kHidden "
+            "+ j0 +\n                                 8 * i);",
+            "          zz[i][hh] = make_float2(1.f, 1.f);"))),
+    "fwd_no_head": (
+        _replace("      if (qi < n_query) {\n        float acc0",
+                 "      if (false) {\n        float acc0"),
+        ("decoder_fused.cuh", _replace("  if (tid < kTileM * 3) {",
+                                       "  if (false) {"))),
+}
+
+
 def _cut(tree: Path, name: str) -> Path:
     """A copy of the tree with the cuts of ``name`` (joined by ``+``)."""
     out = tree.parent / f"{tree.name}_{name.replace('+', '_')}"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(tree / "tpu_diinn_torch", out / "tpu_diinn_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = out / "tpu_diinn_torch" / "csrc"
     for cut in name.split("+"):
-        header, patch = CUTS[cut]
-        src = out / "tpu_diinn_torch" / "csrc" / header
-        src.write_text(patch(src.read_text()))
+        if cut in FWD_CUTS:
+            new, (header, patch) = FWD_CUTS[cut]
+            if (csrc / _FWD_HEADER).exists():
+                header, patch = _FWD_HEADER, new
+        else:
+            header, patch = CUTS[cut]
+        src = csrc / header
+        text = src.read_text()
+        cut_text = patch(text)
+        assert cut_text != text, f"cut {cut} changed nothing in {header}"
+        src.write_text(cut_text)
     return out
+
+
+def _prebuild(roots, libs) -> None:
+    """Build every tree's libraries, all at once (one process a tree)."""
+    code = ("import sys\nfrom tpu_diinn_torch.kernels import build\n"
+            "for name in sys.argv[1:]:\n    build.build(name)\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *libs], cwd=root,
+                              env=dict(os.environ, PYTHONPATH=str(root)))
+             for root in roots]
+    for proc in procs:
+        proc.wait()
 
 
 def main(argv=None) -> int:
@@ -216,19 +326,23 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=4)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--route", default="bwd", choices=("bwd", "fwd"))
     ap.add_argument("--cuts", default="fwd_stores,fwd_only",
                     help="comma-separated runs, each a cut of "
-                    + ", ".join(CUTS) + " or several joined by +; "
-                    "empty: the tree alone")
+                    + ", ".join(list(CUTS) + list(FWD_CUTS))
+                    + " or several joined by +; empty: the tree alone")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     runs = [("full", tree)] + [(c, _cut(tree, c))
                                for c in args.cuts.split(",") if c]
+    _prebuild([root for _, root in runs],
+              ["decoder_fused"] + (["decoder_bwd"] if args.route == "bwd"
+                                   else []))
     rc = 0
     for variant, root in runs:
         env = dict(os.environ, PYTHONPATH=str(root))
         rc |= subprocess.run([sys.executable, "-c", _RUN, str(args.scale),
-                              variant, args.dtype], cwd=root,
+                              variant, args.dtype, args.route], cwd=root,
                              env=env).returncode
     return rc
 
