@@ -11,7 +11,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA versions;
 2. build: the CUDA kernel libraries with plain ``nvcc``, one process per
    library, all started together (content-addressed under
-   ``build/tpu_diinn_torch/``), with ``ptxas`` registers and spills and,
+   ``build/tpu_diinn_torch/``), while this process makes the host-only
+   inputs of phases 8d and 11a, with ``ptxas`` registers and spills and,
    from ``cuobjdump -sass``, each kernel's count of tensor-core (``HMMA``,
    ``HGMMA``) and fp32 ``FFMA`` instructions; every instance of the
    forward kernels (``decode_fwd_kernel``, fp32, and the bf16 mode's own
@@ -112,7 +113,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       ``main`` of LIIF and MetaSR on ``results/{liif,metasr}_weights.npz``
       and of the bicubic baseline (``--bicubic_test``), all 36 metrics
       each against the committed JAX-CPU oracle at phase 4's bounds; no
-      decoder kernel runs;
+      decoder kernel runs; the samples are those phase 4 read through the
+      CLI's dataset path (the same images and scales), decoded once;
    b. DIINN with the EDSR-baseline encoder (``BASELINE.json``
       ``configs[0]``: mode 3, hidden 4 x 256) on ``seeded_params``
       weights, Set5 at x2 and x3.14: both forward kernels launched, the
@@ -125,9 +127,10 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       grad norm at phase 5a's step-1 bounds; no decoder kernel runs;
    d. LIIF and MetaSR training: three steps each from the committed
       weights on 5a's batches at 5a's bounds, then ``cli.train``'s
-      ``main`` with ``model.arch=<family>`` for 20 steps (validation on
+      ``main`` with ``model.arch=<family>`` for 10 steps (validation on
       two images, the checkpoint loads back), with the step's ms (CUDA
-      events, steps 2-20) and the host's wait for the next batch;
+      events, steps 2-10) and the host's wait for the next batch; and
+      5d's profile of each family's step over 3 steps after 2;
 8. the user's entry points, fp32, from the flagship weights, each path
    with the launch counts set to 0 before it and read after it:
    a. ``cli.demo updown`` of Set5's img0000 (``DEMO_UPDOWN``: LR 64x64 at
@@ -145,9 +148,10 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       seconds;
    c. ``cli.runtime_bench --iters 20``: its JSON line, each DIINN scale
       launching ``decode_int_fwd`` 22 times, no other family a kernel;
-   d. resume through ``cli.train`` (40 steps an epoch, the rate halved at
-      step 40): two straight 2-epoch runs, a 1-epoch run and a 2-epoch run
-      resumed from it: step 80, step 41's rate half of step 1's, the
+   d. resume through ``cli.train`` on DIV2K's first 45 images (40 to
+      train: 10 steps an epoch, the rate halved at step 10): two straight
+      2-epoch runs, a 1-epoch run and a 2-epoch run resumed from it: step
+      20, step 11's rate half of step 1's, the
       parameters bit-equal to the straight run's if the straight runs
       agree bit for bit, else within twice their largest relative gap,
       with the gradients that differ between two backward passes and
@@ -182,7 +186,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    d. two ranks sharing the card over gloo (collectives staged through
       the host), ``cli.train`` for 2 flagship steps at ``mesh_data=2`` and
       at ``mesh_space=2``: rank 0's parameters within rtol 1e-4, atol
-      1e-5 of one rank's; NCCL across cards is not measured (one card);
+      1e-5 of one rank's (two sample workers a rank); NCCL across cards is
+      not measured (one card);
 10. the bucketed static-shape eval (``train/bucketed.py``), the benchmark
    CLI's default route: one CUDA graph a bucket, replayed for every image
    of it; each path with the launch counts set to 0 before it and read
@@ -212,8 +217,26 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       which the wrappers see, is the control); the replay's device ms,
       the eager run's decoder ms, and from them the decoder's seconds in
       10a;
-7. a ``kernels`` JSON line (each row with its times at every training
-   shape under ``train_shapes``, the forwards' eval shapes under
+11. the paired dataset, the compact export and RDN's head, each path
+   with the launch counts set to 0 before it and read after it:
+   a. ``train_batches`` over ``SRDatasetPaired`` on 16 DIV2K images and
+      their ``LR_bicubic/X{2,3,4}`` files (written under ``build/`` by
+      ``core/resize``): 5 batches without the ``.npy`` cache, 5 on the
+      read that writes it and 5 on a read from it, bit-equal; then 5
+      flagship fp32 steps of ``loop.make_train_step`` on them from the
+      seeded init: finite losses, ``decode_int_fwd`` and
+      ``decode_int_bwd`` 3 times a step, the step's ms;
+   b. the committed flagship weights through the trainer's
+      ``CheckpointManager`` and ``export_params_npz``: every array
+      bit-equal to the committed file's, the same meta; the benchmark
+      CLI's bucketed route on Set5 from the new file: both forward kernels
+      launched, each metric within 1e-6 of phase 10a's;
+   c. RDN-B with its PixelShuffle head at x2, x3, x4 on a seeded batch
+      of 2 LR images of 48²: the card's output within 1e-4 of the largest
+      magnitude of the CPU's, with the card's ms; no decoder kernel;
+7. the phases' total seconds (a ``total`` line), a ``kernels`` JSON line
+   (each row with its times at every training shape under
+   ``train_shapes``, the forwards' eval shapes under
    ``eval_shapes``; the bf16 instances as rows of their own, ``dtype``
    bfloat16; ``launches_by_path`` with every path above), and last the
    device JSON line.
@@ -236,6 +259,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -244,20 +268,24 @@ import torch
 from tpu_diinn_torch import bench
 from tpu_diinn_torch.cli import benchmarks, demo, runtime_bench
 from tpu_diinn_torch.cli import train as train_cli
-from tpu_diinn_torch.config.config import load_config
+from tpu_diinn_torch.config.config import load_config, to_dict
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import _SIN_COEFFS
 from tpu_diinn_torch.core.resize import resize_by_scale_size, resize_np
 from tpu_diinn_torch.data import pipeline
-from tpu_diinn_torch.data.png import read_png
+from tpu_diinn_torch.data.datasets import SRDatasetPaired
+from tpu_diinn_torch.data.png import read_png, write_png
 from tpu_diinn_torch.kernels import build
 from tpu_diinn_torch.native import loader as native_loader
 from tpu_diinn_torch.parallel import launch, sharding
 from tpu_diinn_torch.kernels import decoder_fused as K
+from tpu_diinn_torch.nn.rdn import RDN
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops, loop, profiling
 from tpu_diinn_torch.train.bucketed import _syn_traced
-from tpu_diinn_torch.train.checkpoint import (load_params_npz,
+from tpu_diinn_torch.train.checkpoint import (CheckpointManager,
+                                              export_params_npz,
+                                              load_params_npz,
                                               seeded_params,
                                               state_dict_from_jax)
 from tpu_diinn_torch.train.task import denormalize, normalize
@@ -303,6 +331,8 @@ BUCKET_TOL = 1e-4          # phase 10a against phase 4 (tests/test_bucketed)
 N_PROGRAMS = 5             # phase 10a: kernel x3, traced x2 (quantum 64)
 HIDDEN, LAYERS = 256, 4
 TRAIN_STEPS, FRACTIONAL_STEPS = 20, 5
+FAMILY_TRAIN_STEPS = 10    # phase 6d's cli.train runs
+PROFILE_STEPS = {"bf16": (3, 5), "family": (2, 3)}  # (warm-up, profiled)
 FAMILIES = ("liif", "metasr")
 FAMILY_WEIGHTS = "results/{}_weights.npz"
 FAMILY_ORACLE = "tpu_diinn_torch/testdata/{}_benchmarks_jax_cpu.json"
@@ -347,6 +377,19 @@ RUNTIME_ITERS = 20         # phase 8c: timed calls, after 2 warm-up calls
 JPEG = "tpu_diinn_torch/testdata/set5_img0000_q90.jpg"   # Set5 img0000
 LOADER_HEADERS = ("/usr/include/png.h", "/usr/include/jpeglib.h")
 RANK1_STEPS = 5            # phase 9b
+# phase 8d: DIV2K's first RESUME_IMAGES images linked under WORK, which
+# _build_set cuts into 40 training images (8/9) and 5 validation ones: 10
+# steps an epoch at batch 4
+RESUME_TRAIN_IMAGES = 40
+RESUME_IMAGES = RESUME_TRAIN_IMAGES * 9 // 8
+RESUME_STEPS_PER_EPOCH = RESUME_TRAIN_IMAGES // 4
+DIV2K_HR = Path("data/DIV2K/DIV2K_train_HR")
+# phase 11a: paired LR/HR training on PAIRED_IMAGES of DIV2K with their
+# LR_bicubic files written under WORK
+PAIRED_IMAGES, PAIRED_SCALES, PAIRED_STEPS = 16, (2, 3, 4), 5
+HEAD_SCALES, HEAD_BATCH, HEAD_LR = (2, 3, 4), 2, 48   # phase 11c
+HEAD_TOL = 1e-4            # phase 11c: relative to the largest magnitude
+REEXPORT_TOL = 1e-6        # phase 11b against 10a's Set5 metrics, dB
 STRIPE_SPACES = (2, 3, 8, 64)      # phase 9c: stripes of the eval decode
 STRIPE_STEP_SPACES = (2, 5)        # phase 9c: the emulated sharded step
 STRIPE_WIDTH = 253                 # phase 9c: a width no space divides
@@ -1016,12 +1059,59 @@ def masked_grad(z, syn, rows, cols, p, gen):
     return (g * keep[..., None]).contiguous(), int((~keep).sum().item())
 
 
+EVAL_SAMPLES: dict = {}    # phase 4's eval samples, replayed by 6a, 11b
+
+
+def eval_key(dataset, indices) -> tuple:
+    """What an eval sample list depends on: the images, the scales and the
+    indices (eval samples draw no random numbers)."""
+    return (tuple(dataset.names_hr), tuple(dataset.scales),
+            dataset.patch_size, tuple(indices))
+
+
+def recording_samples(fn):
+    """A wrapper of ``pipeline.eval_batches`` that keeps each dataset's
+    samples, as it yields them, in ``EVAL_SAMPLES``."""
+    def gen(dataset, indices=None):
+        indices = range(len(dataset)) if indices is None else indices
+        items = []
+        for item in fn(dataset, indices):
+            items.append(item)
+            yield item
+        EVAL_SAMPLES[eval_key(dataset, indices)] = items
+    return gen
+
+
+def replaying_samples(fn):
+    """A wrapper of ``pipeline.eval_batches`` that yields the samples phase
+    4 read for the same dataset and indices (the same arrays: the eval
+    loops only read them), and raises for any other."""
+    def gen(dataset, indices=None):
+        indices = range(len(dataset)) if indices is None else indices
+        key = eval_key(dataset, indices)
+        if key not in EVAL_SAMPLES:
+            raise AssertionError(f"no samples kept for {key[0][:1]}..., "
+                                 f"scales {key[1]}")
+        yield from EVAL_SAMPLES[key]
+    return gen
+
+
+def keep_samples_of(testset: str) -> None:
+    """Drops the kept samples of every test set but ``testset``."""
+    for key in [k for k in EVAL_SAMPLES
+                if Path(k[0][0]).parent.parent.name != testset]:
+        del EVAL_SAMPLES[key]
+
+
 def eval_slice(t) -> tuple:
     """Phase 4: the flagship benchmark evaluation on the exact-shape route;
-    returns its launches and its metrics."""
+    returns its launches and its metrics. The samples it reads through the
+    CLI's dataset path are kept for phases 6a and 11b."""
     spans = {name: [] for name in FWD}
     K.reset_launches()
     with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(pipeline, "eval_batches",
+                                    recording_samples))
         for name in FWD:
             stack.enter_context(patched(K, name, span_recorder(spans[name])))
         results = benchmarks.main(["--ckpt_path", WEIGHTS, "--device",
@@ -1077,17 +1167,32 @@ def max_delta(results: dict, other: dict) -> float:
                if s in results for k, v in m.items())
 
 
+_FIRST_BATCHES: dict = {}
+
+
 def first_batches(cfg, n: int) -> tuple:
-    """The first ``n`` training batches of epoch 0 of ``cfg``'s data (host
-    numpy, on the numpy path the oracles read), and the steps per epoch."""
-    train_ds, _ = loop.make_datasets(cfg, use_native=False)
-    it = pipeline.train_batches(
-        train_ds, batch_size=cfg.data.batch_size, epoch=0, seed=cfg.seed,
-        repeat=cfg.data.trainsets_repeat, num_workers=cfg.data.num_workers)
-    batches = [next(it) for _ in range(n)]
-    it.close()
-    return batches, (len(train_ds) * cfg.data.trainsets_repeat
-                     // cfg.data.batch_size)
+    """The first ``n`` (at most 3) training batches of epoch 0 of ``cfg``'s
+    data (host numpy, on the numpy path the oracles read), and the steps
+    per epoch. Made once for each data configuration and seed (phases 5a,
+    5d, 6d, 8d, 8f and 9c share the flagship's); each call gets its own
+    copy."""
+    key = json.dumps([cfg.seed, to_dict(cfg)["data"]], sort_keys=True)
+    if key not in _FIRST_BATCHES:
+        train_ds, _ = loop.make_datasets(cfg, use_native=False)
+        it = pipeline.train_batches(
+            train_ds, batch_size=cfg.data.batch_size, epoch=0,
+            seed=cfg.seed, repeat=cfg.data.trainsets_repeat,
+            num_workers=cfg.data.num_workers)
+        batches = [next(it) for _ in range(3)]
+        it.close()
+        _FIRST_BATCHES[key] = batches, (len(train_ds)
+                                        * cfg.data.trainsets_repeat
+                                        // cfg.data.batch_size)
+    batches, spe = _FIRST_BATCHES[key]
+    if n > len(batches):
+        raise ValueError(f"first_batches keeps {len(batches)} batches")
+    return [{s: (lr.copy(), hr.copy()) for s, (lr, hr) in b.items()}
+            for b in batches[:n]], spe
 
 
 def hold_steps(got: list, want: list, what: str) -> list:
@@ -1441,16 +1546,19 @@ def train_parity_bf16(dev, t) -> dict:
 
 
 def step_profile(dev, t, overrides=("model.dtype=bfloat16",),
-                 label: str = "step_profile_bf16") -> dict:
+                 label: str = "step_profile_bf16",
+                 steps: tuple = PROFILE_STEPS["bf16"]) -> dict:
     """Phase 5d, last (and 6d's with ``model.arch=liif|metasr``): where a
     training step's device time goes, and how long the device idles.
-    ``torch.profiler`` over 5 steps (after 3 warm-up steps) on a seeded
-    random batch at the training configuration with ``overrides``; each
-    kernel is put in one group by its name. The idle share is 1 - (kernel
-    time) / (wall time), one stream, with the wall time of 5 more steps
-    timed without the profiler (whose own host cost would count as idle);
-    the profiled wall time stands beside it."""
+    ``torch.profiler`` over n steps (after w warm-up steps; ``steps`` is
+    (w, n): 5d (3, 5), 6d (2, 3)) on a seeded random batch at the training
+    configuration with ``overrides``; each kernel is put in one group by
+    its name. The idle share is 1 - (kernel time) / (wall time), one
+    stream, with the wall time of n more steps timed without the profiler
+    (whose own host cost would count as idle); the profiled wall time
+    stands beside it."""
     from torch.profiler import ProfilerActivity, profile
+    warmup, n = steps
     cfg = load_config(None, list(overrides))
     state = loop.init_state(cfg, 1000, device=dev)
     step = loop.make_train_step(state)
@@ -1458,10 +1566,9 @@ def step_profile(dev, t, overrides=("model.dtype=bfloat16",),
     batch = loop.to_device(bench._random_batch(
         rng, cfg.data.batch_size, cfg.data.patch_size,
         cfg.data.train_scales), dev)
-    for _ in range(3):
+    for _ in range(warmup):
         step(batch)
     torch.cuda.synchronize()
-    n = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1510,7 +1617,7 @@ def step_profile(dev, t, overrides=("model.dtype=bfloat16",),
            "wall_ms_per_step_profiled": wall_profiled,
            "kernel_ms_per_step": kernels,
            "device_idle_share": (1.0 - kernels / wall) if kernels else None,
-           "kernel_ms_by_group": ms}
+           "kernel_ms_by_group": ms, "warmup_and_profiled_steps": [warmup, n]}
     phase(label, t, **out)
     return out
 
@@ -1526,12 +1633,15 @@ def bench_line(t) -> None:
 def eval_family(t, family: str) -> dict:
     """Phase 6a: a family's benchmark evaluation through the benchmark
     CLI (the committed weights of LIIF or MetaSR, or ``--bicubic_test``),
-    fp32, against its JAX-CPU oracle; no decoder kernel may run."""
+    fp32, against its JAX-CPU oracle; no decoder kernel may run. The four
+    sets' samples are phase 4's (``replaying_samples``): the same images
+    and scales, decoded and downsampled once."""
     K.reset_launches()
     args = (["--bicubic_test"] if family == "bicubic"
             else ["--ckpt_path", FAMILY_WEIGHTS.format(family)])
-    results = benchmarks.main(args + ["--device", "cuda", "--eval_buckets",
-                                      "0"])
+    with patched(pipeline, "eval_batches", replaying_samples):
+        results = benchmarks.main(args + ["--device", "cuda",
+                                          "--eval_buckets", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = dict(K.launches)
@@ -1673,9 +1783,10 @@ def train_families(dev, t) -> dict:
     """Phase 6d: for LIIF and MetaSR, three ``make_train_step`` steps from
     the committed weights on the flagship's first three batches against
     the JAX-CPU oracle (phase 5a's bounds); then ``cli.train``'s ``main``
-    with ``model.arch=<family>`` from the seeded init for TRAIN_STEPS
-    steps, validation on two images and the checkpoint, with the step's
-    CUDA-event ms (steps 2-20) and the host's wait for the next batch."""
+    with ``model.arch=<family>`` from the seeded init for
+    FAMILY_TRAIN_STEPS steps, validation on two images and the checkpoint,
+    with the step's CUDA-event ms (steps 2-10) and the host's wait for the
+    next batch."""
     with open(FAMILIES_TRAIN_ORACLE) as f:
         oracle = json.load(f)
     K.reset_launches()
@@ -1693,10 +1804,10 @@ def train_families(dev, t) -> dict:
         del state, step
         t_cli = time.perf_counter()
         state, ckpt, records, per, host_gaps = timed_train_cli(
-            ["--max-steps", str(TRAIN_STEPS), f"model.arch={fam}",
+            ["--max-steps", str(FAMILY_TRAIN_STEPS), f"model.arch={fam}",
              "trainer.limit_val_images=2"], f"train_{fam}")
         val = records[-1]
-        if not (state.step == TRAIN_STEPS
+        if not (state.step == FAMILY_TRAIN_STEPS
                 and math.isfinite(val["train_loss"])
                 and math.isfinite(val["val_loss"])):
             raise AssertionError(f"{fam} training record {val}")
@@ -1913,20 +2024,43 @@ def params_gap(a: dict, b: dict) -> float:
         min=1e-30)) for k in a)
 
 
+def resume_root(work: Path) -> Path:
+    """Phase 8d's data root: ``work/resume_data/DIV2K/DIV2K_train_HR``
+    holding links to the first RESUME_IMAGES of DIV2K's HR images, which
+    the trainer cuts into RESUME_TRAIN_IMAGES training images and the
+    rest for validation (``loop._build_set``)."""
+    root = work / "resume_data"
+    hr = root / "DIV2K" / DIV2K_HR.name
+    shutil.rmtree(root, ignore_errors=True)
+    hr.mkdir(parents=True)
+    for src in sorted(DIV2K_HR.glob("*.png"))[:RESUME_IMAGES]:
+        (hr / src.name).symlink_to(src.resolve())
+    return root
+
+
+def resume_args(root: Path) -> list:
+    """Phase 8d's overrides: ``root``'s images once an epoch
+    (RESUME_STEPS_PER_EPOCH steps at batch 4), the rate halving at every
+    epoch (``model.lr_step=1``), validation on two images."""
+    return [f"data.root={root}", "data.trainsets_repeat=1",
+            "model.lr_step=1", "trainer.limit_val_images=2"]
+
+
 def train_resume(dev, t) -> dict:
-    """Phase 8d: resume through ``cli.train`` on DIV2K at 40 steps an
-    epoch (``data.trainsets_repeat=1``), the rate halving at step 40
+    """Phase 8d: resume through ``cli.train`` at RESUME_STEPS_PER_EPOCH
+    (10) steps an epoch, on the first 45 DIV2K images (``resume_root``,
+    made before the phases), the rate halving at step 10
     (``model.lr_step=1``), with cuDNN held to its deterministic
     algorithms: two straight 2-epoch runs (their gap is the witness), a
     1-epoch run, and a 2-epoch run resumed from it. The resumed run ends
-    at step 80 with step 41's rate half of step 1's. If the two straight
+    at step 20 with step 11's rate half of step 1's. If the two straight
     runs agree bit for bit, the resumed run must equal them bit for bit;
     else (the fallback) it must be within twice the straight runs' largest
     relative gap, and ``nondeterminism_probe`` names the gradients and
     kernels that differ between two runs. Also reports what the
     deterministic algorithms cost a flagship step."""
-    base = ["data.trainsets_repeat=1", "model.lr_step=1",
-            "trainer.limit_val_images=2"]
+    base = resume_args(WORK / "resume_data")
+    spe = RESUME_STEPS_PER_EPOCH
     lrs = {}
 
     def recording(tag):
@@ -1957,10 +2091,12 @@ def train_resume(dev, t) -> dict:
                 steps = state.step
             del state
     counts = dict(K.launches)
-    if not (steps == 80 and len(lrs["resumed"]) == 40
-            and lrs["resumed"][0] == 0.5 * lrs["part"][0]):
+    if not (steps == 2 * spe and len(lrs["part"]) == len(lrs["resumed"])
+            == spe and lrs["resumed"][0] == 0.5 * lrs["part"][0]
+            and lrs["straight_a"][spe] == lrs["resumed"][0]):
         raise AssertionError(f"resumed run: step {steps}, rates of steps 1 "
-                             f"and 41 {lrs['part'][:1]}, {lrs['resumed'][:1]}")
+                             f"and {spe + 1} {lrs['part'][:1]}, "
+                             f"{lrs['resumed'][:1]}")
     witness = params_gap(states["straight_a"], states["straight_b"])
     gap = params_gap(states["straight_a"], states["resumed"])
     straight_equal = all(torch.equal(v, states["straight_b"][k])
@@ -1974,8 +2110,9 @@ def train_resume(dev, t) -> dict:
         raise AssertionError(f"resumed vs straight: relative gap {gap} > "
                              f"2 x the straight runs' {witness}")
     probe = None if straight_equal else nondeterminism_probe(dev)
-    phase("train_resume", t, steps=steps, lr_step1=lrs["part"][0],
-          lr_step41=lrs["resumed"][0], cudnn_deterministic=True,
+    phase("train_resume", t, steps=steps, steps_per_epoch=spe,
+          lr_step1=lrs["part"][0], lr_first_step_of_epoch2=lrs["resumed"][0],
+          cudnn_deterministic=True,
           straight_runs_bit_equal=straight_equal,
           resumed_bit_equal=resumed_equal, straight_runs_rel_gap=witness,
           resumed_rel_gap=gap, cli_seconds=secs,
@@ -1984,7 +2121,7 @@ def train_resume(dev, t) -> dict:
     return counts
 
 
-def deterministic_step_cost(dev, warmup: int = 3, iters: int = 10) -> dict:
+def deterministic_step_cost(dev, warmup: int = 2, iters: int = 5) -> dict:
     """Mean device ms of a flagship fp32 training step (committed weights,
     the first batch of epoch 0, repeated) by default and under
     ``cudnn_deterministic``, in turns: default, deterministic,
@@ -2626,8 +2763,8 @@ def eval_bucketed(t, exact: dict) -> tuple:
     eval: the 36 metrics against the JAX-CPU oracle at phase 4's bounds
     and within BUCKET_TOL of phase 4's exact-shape results, N_PROGRAMS
     programs, both forward kernels launched and counted per replay.
-    Returns the evaluator (phase 10d replays its graphs) and the
-    launches."""
+    Returns the evaluator (phase 10d replays its graphs), the launches
+    and the metrics."""
     K.reset_launches()
     results, ev, wall, split, peak = bucketed_cli(
         ["--ckpt_path", WEIGHTS, "--device", "cuda"])
@@ -2654,7 +2791,7 @@ def eval_bucketed(t, exact: dict) -> tuple:
           programs=programs, launches=counts, metrics=len(deltas),
           max_delta_vs_oracle=deltas[worst_o], max_delta_at=worst_o,
           max_delta_vs_exact_route=vs_exact[worst], max_exact_at=worst)
-    return ev, counts
+    return ev, counts, results
 
 
 def eval_bucketed_bf16(t) -> dict:
@@ -2803,6 +2940,202 @@ def bucketed_replay_check(t, ev) -> dict:
     return dict(K.launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paired LR/HR dataset, the compact export, RDN's head.
+# ---------------------------------------------------------------------------
+
+def paired_root(work: Path) -> Path:
+    """Phase 11a's data root: ``work/paired_data/DIV2K`` with links to the
+    first PAIRED_IMAGES of DIV2K's HR images and, for each, its
+    ``DIV2K_train_LR_bicubic/X{s}/{stem}x{s}.png`` at PAIRED_SCALES: the
+    HR image downsampled by ``core/resize.resize_np`` (antialiased
+    bicubic) to H/s x W/s, rounded to uint8."""
+    root = work / "paired_data"
+    base = root / "DIV2K"
+    shutil.rmtree(root, ignore_errors=True)
+    hr_dir = base / DIV2K_HR.name
+    hr_dir.mkdir(parents=True)
+    for src in sorted(DIV2K_HR.glob("*.png"))[:PAIRED_IMAGES]:
+        (hr_dir / src.name).symlink_to(src.resolve())
+        hr = read_png(str(src)).astype(np.float32)
+        for s in PAIRED_SCALES:
+            lr = resize_np(hr, (hr.shape[0] // s, hr.shape[1] // s))
+            lr_dir = base / "DIV2K_train_LR_bicubic" / f"X{s}"
+            lr_dir.mkdir(parents=True, exist_ok=True)
+            write_png(str(lr_dir / f"{src.stem}x{s}.png"),
+                      np.clip(np.round(lr), 0, 255).astype(np.uint8))
+    return root
+
+
+def paired_batches(cfg, binarize: bool, workers: int) -> tuple:
+    """The first PAIRED_STEPS batches of epoch 0 of ``train_batches`` over
+    phase 11a's ``SRDatasetPaired`` (every image twice an epoch), and the
+    dataset's length."""
+    ds = SRDatasetPaired(root=str(WORK / "paired_data"), name="DIV2K",
+                         split="train", scales=PAIRED_SCALES,
+                         patch_size=cfg.data.patch_size, augment=True,
+                         binarize=binarize)
+    it = pipeline.train_batches(ds, batch_size=cfg.data.batch_size,
+                                epoch=0, seed=cfg.seed, repeat=2,
+                                num_workers=workers)
+    out = [next(it) for _ in range(PAIRED_STEPS)]
+    it.close()
+    return out, len(ds)
+
+
+def train_paired(dev, t) -> dict:
+    """Phase 11a: flagship fp32 training (RDN-B, 4 x 256, batch 4, 48-px
+    patches at {2, 3, 4}, Adam 1e-4, the seeded init) for PAIRED_STEPS
+    steps of ``loop.make_train_step`` on batches of ``train_batches`` over
+    ``SRDatasetPaired`` (pre-generated LR files, ``paired_root``). The
+    batches with ``binarize=True``, on the read that writes the ``.npy``
+    cache (in the sample workers) and on one that reads it (in this
+    process), must be bit-equal to those without it; the losses finite;
+    ``decode_int_fwd`` and ``decode_int_bwd`` launched 3 times a step."""
+    cfg = load_config(None, [])
+    shutil.rmtree(WORK / "paired_data" / "DIV2K" / "bin", ignore_errors=True)
+    marks = [time.perf_counter()]
+    plain, n = paired_batches(cfg, False, cfg.data.num_workers)
+    marks.append(time.perf_counter())
+    first, _ = paired_batches(cfg, True, cfg.data.num_workers)
+    marks.append(time.perf_counter())
+    cache = sorted(p.name for p in
+                   (WORK / "paired_data" / "DIV2K" / "bin").iterdir())
+    cached, _ = paired_batches(cfg, True, 0)
+    marks.append(time.perf_counter())
+    for what, other in (("first read", first), ("cached read", cached)):
+        for i, (a, b) in enumerate(zip(plain, other)):
+            for s in PAIRED_SCALES:
+                for x, y in zip(a[s], b[s]):
+                    if not (x.dtype == y.dtype and np.array_equal(x, y)):
+                        raise AssertionError(f"paired batch {i} x{s}: the "
+                                             f"cache's {what} differs")
+    if any(name.endswith(".tmp.npy") for name in cache) or not cache:
+        raise AssertionError(f"binarize cache {cache}")
+    state = loop.init_state(cfg, n * 2 // cfg.data.batch_size, device=dev)
+    step = loop.make_train_step(state)
+    spans, losses = [], []
+    K.reset_launches()
+    for batch in cached:
+        a, b = events()
+        a.record()
+        m = step(loop.to_device(batch, dev))
+        b.record()
+        spans.append((a, b))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    n_steps = len(cached)
+    if not (counts["decode_int_fwd"] == counts["decode_int_bwd"]
+            == 3 * n_steps) or any(v for k, v in counts.items()
+                                   if k not in BWD[:1] + FWD[:1]):
+        raise AssertionError(f"paired training launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"paired training losses {losses}")
+    ms = [a.elapsed_time(b) for a, b in spans]
+    del state, step
+    torch.cuda.empty_cache()
+    phase("train_paired", t, images=n, steps=n_steps, losses=losses,
+          launches=counts, step_ms=float(np.mean(ms[1:])), step_ms_all=ms,
+          binarize_bit_equal=True, cache_files=len(cache),
+          batch_seconds=dict(zip(("plain", "binarize_first_read",
+                                  "binarize_cached_read"),
+                                 np.round(np.diff(marks), 3).tolist())))
+    return counts
+
+
+def reexport(t, bucketed_set5: dict) -> dict:
+    """Phase 11b: ``results/flagship_weights.npz`` loaded into the port,
+    saved by the trainer's ``CheckpointManager`` (fp32) and written by
+    ``export_params_npz``: every array of the new file bit-equal to the
+    committed file's (a bf16 value rounds to itself) and the same meta;
+    then the benchmark CLI's bucketed route on Set5 at {3.14, 4, 8} from
+    the new file (phase 4's samples): both forward kernels launched, each
+    metric within REEXPORT_TOL of phase 10a's Set5 metric."""
+    flat, meta = load_params_npz(WEIGHTS)
+    net = make_net("diinn")
+    net.load_state_dict(state_dict_from_jax(flat), strict=True)
+    ckpt_dir, out = WORK / "reexport", WORK / "reexport_weights.npz"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    CheckpointManager(str(ckpt_dir)).save(
+        net, step=meta["step"], val_loss=meta["val_loss"],
+        config=meta["config"], epoch=meta["epoch"])
+    slim = export_params_npz(str(ckpt_dir), str(out))
+    export_s = time.perf_counter() - t0
+    with np.load(WEIGHTS) as want, np.load(out) as got:
+        if sorted(got.files) != sorted(want.files):
+            raise AssertionError(f"re-export keys differ: "
+                                 f"{set(got.files) ^ set(want.files)}")
+        for k in want.files:
+            a, b = got[k], want[k]
+            if k == "__meta__":
+                if json.loads(str(a)) != json.loads(str(b)):
+                    raise AssertionError(f"re-export meta {a} != {b}")
+            elif not (a.dtype == b.dtype and a.shape == b.shape
+                      and a.tobytes() == b.tobytes()):
+                raise AssertionError(f"re-export {k} differs")
+        n_arrays = len(want.files) - 1
+    del net
+    K.reset_launches()
+    with patched(pipeline, "eval_batches", replaying_samples):
+        results, ev, wall, _, _ = bucketed_cli(
+            ["--ckpt_path", str(out), "--device", "cuda",
+             "--testsets", "Set5"])
+    counts = dict(K.launches)
+    for name in FWD:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 f"re-export's eval: {counts}")
+    gaps = {k: abs(v - bucketed_set5[k]) for k, v in results["Set5"].items()}
+    worst = max(gaps, key=gaps.get)
+    if len(gaps) != len(bucketed_set5) or gaps[worst] > REEXPORT_TOL:
+        raise AssertionError(f"re-export Set5 {worst}: {gaps[worst]} from "
+                             f"phase 10a (> {REEXPORT_TOL})")
+    phase("reexport", t, arrays_bit_equal=n_arrays, meta_step=slim["step"],
+          export_seconds=round(export_s, 3), file_bytes=out.stat().st_size,
+          wall_seconds=round(wall, 3), n_programs=ev.n_programs,
+          launches=counts, metrics=len(gaps),
+          max_delta_vs_phase_10a=gaps[worst], max_delta_at=worst)
+    return counts
+
+
+def rdn_head(dev, t) -> dict:
+    """Phase 11c: RDN-B with its PixelShuffle head at x2, x3 and x4 (its
+    ``seeded_params`` weights, numpy seed SEED + r) on a seeded batch of
+    HEAD_BATCH LR images of HEAD_LR²: the card's output within HEAD_TOL of
+    the largest magnitude of the same module's on the CPU (TF32 off on
+    both: cuDNN and oneDNN sum in different orders), with the card's ms a
+    call (CUDA events, 5 calls after one); no decoder kernel runs."""
+    x = np.random.default_rng(SEED).uniform(
+        0.0, 1.0, (HEAD_BATCH, HEAD_LR, HEAD_LR, 3)).astype(np.float32)
+    out = {}
+    K.reset_launches()
+    for r in HEAD_SCALES:
+        net = RDN(upsampling=r)
+        net.load_state_dict(state_dict_from_jax(seeded_params(net, SEED + r)),
+                            strict=True)
+        with torch.no_grad():
+            want = net(torch.from_numpy(x))
+            net = net.to(dev)
+            xd = torch.from_numpy(x).to(dev)
+            got = net(xd).cpu()
+            ms = time_ms(lambda: net(xd), 5)
+        shape = (HEAD_BATCH, HEAD_LR * r, HEAD_LR * r, 3)
+        gap = float((got - want).abs().max() / want.abs().max())
+        if tuple(got.shape) != shape or not gap <= HEAD_TOL:
+            raise AssertionError(f"RDN head x{r}: shape {tuple(got.shape)}, "
+                                 f"relative gap {gap} (> {HEAD_TOL})")
+        out[f"x{r}"] = {"shape": list(shape), "max_rel_err": gap, "ms": ms}
+        del net, xd
+    counts = dict(K.launches)
+    if any(counts.values()):
+        raise AssertionError(f"RDN head: a decoder kernel ran: {counts}")
+    torch.cuda.empty_cache()
+    phase("rdn_head", t, **out, launches=counts)
+    return counts
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
         bf16_cpu_witness(argv[1])
@@ -2815,7 +3148,7 @@ def main(argv: list) -> int:
         return 2
 
     # 1) device
-    t = time.perf_counter()
+    t_total = t = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2832,13 +3165,21 @@ def main(argv: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2) build: one nvcc per library, started together
+    # 2) build: one nvcc per library, started together; meanwhile this
+    # thread makes the host-only inputs of phases 8d and 11a
     t = time.perf_counter()
-    build.load_all()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = pool.submit(build.load_all)
+        resume_root(WORK)
+        paired_root(WORK)
+        built.result()
+        names = list(build.build_info)
+        by_lib = dict(zip(names, pool.map(
+            lambda n: sass_counts(build.library_path(n)), names)))
     for name, info in build.build_info.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
-        sass = sass_counts(build.library_path(name))
+        sass = by_lib[name]
         if "cuobjdump" not in sass:
             # kernel name prefixes: every instance has tensor-core
             # instructions, every bf16 one (a Bf16 policy argument, or the
@@ -2888,12 +3229,13 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     for fam in ("liif", "metasr", "bicubic"):
         by_path[f"eval_{fam}"] = eval_family(time.perf_counter(), fam)
+    keep_samples_of("Set5")       # phase 11b replays Set5's
     by_path["eval_diinn_edsr"] = eval_diinn_edsr(dev, time.perf_counter())
     by_path["init_q"] = init_q_step(dev, time.perf_counter())
     by_path["train_families"] = train_families(dev, time.perf_counter())
     for fam in FAMILIES:
         step_profile(dev, time.perf_counter(), [f"model.arch={fam}"],
-                     f"step_profile_{fam}")
+                     f"step_profile_{fam}", PROFILE_STEPS["family"])
     torch.cuda.empty_cache()
 
     # 8) the user's entry points
@@ -2913,14 +3255,22 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
 
     # 10) the bucketed static-shape eval, the benchmark CLI's default route
-    ev, by_path["eval_bucketed"] = eval_bucketed(time.perf_counter(),
-                                                 exact_results)
+    ev, by_path["eval_bucketed"], bucketed_results = eval_bucketed(
+        time.perf_counter(), exact_results)
     by_path["eval_bucketed_bf16"] = eval_bucketed_bf16(time.perf_counter())
     for fam in FAMILIES:
         by_path[f"eval_bucketed_{fam}"] = eval_bucketed_family(
             time.perf_counter(), fam)
     by_path["bucketed_replay_vs_eager"] = bucketed_replay_check(
         time.perf_counter(), ev)
+    del ev
+    torch.cuda.empty_cache()
+
+    # 11) the paired dataset, the compact export, RDN's head
+    by_path["train_paired"] = train_paired(dev, time.perf_counter())
+    by_path["reexport"] = reexport(time.perf_counter(),
+                                   bucketed_results["Set5"])
+    by_path["rdn_head"] = rdn_head(dev, time.perf_counter())
 
     # 7) kernels line, then the device line
     kernels = []
@@ -2958,6 +3308,7 @@ def main(argv: list) -> int:
         if name in FWD:
             entry["eval_shapes"] = [{k: r[k] for k in keys} for r in rs]
         kernels.append(entry)
+    phase("total", t_total)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -86,6 +86,7 @@ def test_port_imports_no_jax_pil_yaml():
         "tpu_diinn_torch.nn.masking", "tpu_diinn_torch.train.bucketed",
         "tpu_diinn_torch.tools.fwd_compare",
         "tpu_diinn_torch.tools.chain_split",
+        "tpu_diinn_torch.tools.worker_start",
         "tests.torch_parallel_ranks", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

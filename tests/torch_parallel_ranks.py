@@ -109,3 +109,16 @@ def make_mesh_error(data: int, space: int) -> str:
     except ValueError as e:
         return str(e)
     return ""
+
+
+def shard_batches(dataset, batch_size: int, epoch: int, seed: int,
+                  num_workers: int):
+    """This process's pid and this rank's shard of ``train_batches`` over
+    ``dataset`` (its samples made by ``num_workers`` worker processes)."""
+    import os
+    import torch.distributed as dist
+    from tpu_diinn_torch.data import pipeline
+    return os.getpid(), list(pipeline.train_batches(
+        dataset, batch_size=batch_size, epoch=epoch, seed=seed,
+        num_workers=num_workers, shard_index=dist.get_rank(),
+        num_shards=dist.get_world_size()))

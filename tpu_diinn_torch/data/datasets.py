@@ -10,6 +10,10 @@ Counterpart of ``tpu_diinn/data/datasets.py`` on its numpy path:
   ``numpy.random.Generator`` the caller passes, drawn in the JAX numpy
   path's order (top, left, then the three flips), so both packages make
   the same samples byte for byte.
+- ``SRDatasetPaired``: the classic EDSR-style loader of pre-generated
+  ``LR_bicubic/X{s}/{stem}x{s}.png`` files with paired random crops at
+  integer scales, and its optional ``.npy`` cache of decoded images
+  (``binarize``), file for file as the JAX package keeps it.
 - ``Subset`` and ``ConcatDataset``, the index views the trainer composes.
 - ``SyntheticSRDataset``: deterministic random images for runs without
   DIV2K on disk.
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import glob
 import os
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -169,6 +174,96 @@ class ConcatDataset:
     def sample(self, idx, rng=None):
         k = int(np.searchsorted(self._offsets, idx, side="right")) - 1
         return self.datasets[k].sample(idx - int(self._offsets[k]), rng)
+
+
+class SRDatasetPaired:
+    """Pre-generated LR/HR pairs: ``scales`` are integers, and the LR image
+    of ``<hr_dir>/<stem>.png`` at scale s is
+    ``<lr_dir>/X{s}/{stem}x{s}.png``. Per scale, a ``patch_size`` LR crop
+    at (top, left) and the HR crop at (top * s, left * s), then the shared
+    flips; ``patch_size=0`` takes the whole LR image and the HR image cut
+    to ``s`` times its size. A missing LR file raises
+    ``FileNotFoundError`` when it is read.
+
+    ``binarize=True`` keeps each decoded image as ``.npy`` under
+    ``<root>/<name>/bin/``, named by its path relative to
+    ``<root>/<name>`` with separators as ``__``, written to a temporary
+    file of the writing process and thread and renamed into place the
+    first time it is read; later reads load it and skip the PNG
+    decode."""
+
+    def __init__(self, root: str = "./data/", name: str = "DIV2K",
+                 split: str = "train", file_ext: str = ".png",
+                 scales: Sequence[int] = (2,), patch_size: int = 96,
+                 augment: bool = True, binarize: bool = False):
+        bad = [s for s in scales if not float(s).is_integer()]
+        if bad:
+            raise ValueError(f"SRDatasetPaired takes integer scales (its LR "
+                             f"files are pre-generated), got {bad}")
+        self.scales = [int(s) for s in scales]
+        self.patch_size = patch_size
+        self.augment = augment
+        base = Path(root) / name
+        struct = DATASET_DIR_STRUCTURE[name][split]
+        self.hr_dir = base / struct["hr_dir"]
+        self.lr_dir = base / struct["lr_dir"]
+        self.file_ext = file_ext
+        self.names_hr = sorted(
+            glob.glob(os.path.join(str(self.hr_dir), "*" + file_ext)))
+        self.bin_dir = (base / "bin") if binarize else None
+        if self.bin_dir is not None:
+            self.bin_dir.mkdir(parents=True, exist_ok=True)
+
+    def _read(self, path: str) -> np.ndarray:
+        if self.bin_dir is None:
+            return read_png(path)
+        rel = os.path.relpath(path, self.bin_dir.parent)
+        cached = self.bin_dir / (rel.replace(os.sep, "__") + ".npy")
+        if cached.exists():
+            return np.load(cached)
+        img = read_png(path)
+        # a name of this process and thread: two sample workers may
+        # decode one image at once
+        tmp = cached.with_name(f"{cached.name}.{os.getpid()}."
+                               f"{threading.get_ident()}.tmp.npy")
+        np.save(tmp, img)
+        os.replace(tmp, cached)
+        return img
+
+    def __len__(self) -> int:
+        return len(self.names_hr)
+
+    def _lr_path(self, hr_path: str, scale: int) -> str:
+        stem = os.path.splitext(os.path.basename(hr_path))[0]
+        return str(self.lr_dir / f"X{scale}" / f"{stem}x{scale}{self.file_ext}")
+
+    def sample(self, idx: int,
+               rng: Optional[np.random.Generator] = None) -> Sample:
+        """{scale: (lr, hr, name)} in [0, 1], float32; ``rng`` is needed
+        for patches and augmentation (drawn as top, left, then the three
+        flips, per scale)."""
+        path = self.names_hr[idx]
+        name = os.path.splitext(os.path.basename(path))[0]
+        hr_img = self._read(path).astype(np.float32)
+        out: Sample = {}
+        for scale in self.scales:
+            lr_img = self._read(self._lr_path(path, scale)).astype(np.float32)
+            if self.patch_size == 0:
+                lh, lw = lr_img.shape[:2]
+                hr_c = hr_img[: lh * scale, : lw * scale]
+                lr_c = lr_img
+            else:
+                ps = self.patch_size
+                top = int(rng.integers(0, lr_img.shape[0] - ps + 1))
+                left = int(rng.integers(0, lr_img.shape[1] - ps + 1))
+                lr_c = lr_img[top:top + ps, left:left + ps]
+                hr_c = hr_img[top * scale:(top + ps) * scale,
+                              left * scale:(left + ps) * scale]
+            pair = [lr_c, hr_c]
+            if self.augment:
+                pair = _augment(pair, rng)
+            out[scale] = (pair[0] / 255.0, pair[1] / 255.0, name)
+        return out
 
 
 class SyntheticSRDataset:

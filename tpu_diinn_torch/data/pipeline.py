@@ -10,14 +10,20 @@ Counterpart of ``tpu_diinn/data/pipeline.py`` on one process:
 Each sample draws from its own generator, ``SeedSequence([seed, epoch,
 global index])``, so a sample's bytes do not depend on the worker that
 makes it, and at most a bounded number of samples is in flight. Training
-samples are made by worker processes (spawned, one pool per epoch): the
-training step launches thousands of CUDA kernels from Python, each of
-which releases and retakes the GIL, and loader threads holding the GIL
-for PNG unfiltering and numpy work stretched a flagship step about
-tenfold on the card. Eval samples, one image at a time between long
-decodes, are made by a small thread pool. A script that iterates
-``train_batches`` keeps its entry point under ``if __name__ ==
-"__main__"``: spawned workers import the main module.
+samples are made by worker processes (one pool per epoch): the training
+step launches thousands of CUDA kernels from Python, each of which
+releases and retakes the GIL, and loader threads holding the GIL for PNG
+unfiltering and numpy work stretched a flagship step about tenfold on
+the card. The workers are forked from a ``forkserver`` process, started
+at the first pool with this module's datasets (and so torch and numpy)
+imported: a spawned worker imported them anew, 3-10 s before its first
+sample, every epoch. The server is a fresh interpreter that never
+touches CUDA (its only other threads are numpy's idle BLAS pool, which
+OpenBLAS stops around a fork), and ends with the process that started
+it. Eval samples, one image at a time between long decodes, are made by
+a small thread pool. A script that iterates ``train_batches`` keeps its
+entry point under ``if __name__ == "__main__"``: each worker runs the
+main module again (its imports then come from the server's).
 
 Under data parallelism each rank loads its shard of every global batch
 (``shard_index`` of ``num_shards``), as the JAX pipeline shards by
@@ -39,6 +45,8 @@ import numpy as np
 
 Batch = Dict[float, Tuple[np.ndarray, np.ndarray]]
 WORKERS = 4
+# imported once by the forkserver that forks the training workers
+_PRELOAD = ("tpu_diinn_torch.data.datasets",)
 
 
 def _sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
@@ -99,9 +107,11 @@ def train_batches(dataset, *, batch_size: int, epoch: int, seed: int = 123,
                    for i, s, e, g in jobs)
         yield from _batched(samples, batch_size)
         return
+    ctx = multiprocessing.get_context("forkserver")
+    # for a server not started yet: the modules its workers inherit
+    ctx.set_forkserver_preload(list(_PRELOAD))
     with ProcessPoolExecutor(
-            max_workers=num_workers,
-            mp_context=multiprocessing.get_context("spawn"),
+            max_workers=num_workers, mp_context=ctx,
             initializer=_init_worker, initargs=(dataset,)) as pool:
         yield from _batched(_bounded_map(
             pool, _load_sample, jobs,

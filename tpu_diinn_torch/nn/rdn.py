@@ -3,9 +3,14 @@
 Counterpart of ``tpu_diinn/nn/rdn.py``: two shallow convs, D residual dense
 blocks of C concat-growing 3x3 convs plus a 1x1 local fusion, a global
 fusion over the concatenated block outputs, and a residual to the first
-shallow feature. Returns the (B, H, W, G0) feature grid at input resolution
-(the DIINN use; the optional PixelShuffle head is not ported). NHWC in and
-out; NCHW inside for ``conv2d``. ``dtype`` is every conv's compute dtype
+shallow feature. With ``upsampling=None`` (the DIINN, LIIF and MetaSR
+use) it returns the (B, H, W, G0) feature grid at input resolution; with
+``upsampling`` 2, 3 or 4 the PixelShuffle head makes it the stand-alone
+super-resolver, (B, H*r, W*r, n_colors): ``up0`` -> shuffle r -> ``up1``
+at x2 and x3, ``up0`` -> shuffle 2 -> ``up1`` -> shuffle 2 -> ``up2`` at
+x4 (``F.pixel_shuffle`` on NCHW, the channel order of ``nn/layers.
+pixel_shuffle``). ``RDNSmall`` is the reduced net of the tests (G0 16,
+config "tiny"). NHWC in and out; NCHW inside for ``conv2d``. ``dtype`` is every conv's compute dtype
 (``nn/layers.py``): with bfloat16 the features come out bf16. ``halo``
 (the JAX ``halo_axis``) reaches every conv: the encoder then runs on a
 slab of rows sharded over that mesh axis (``parallel/sharding.py``).
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpu_diinn_torch.nn.layers import Conv
@@ -53,12 +59,13 @@ class RDB(nn.Module):
 
 class RDN(nn.Module):
     def __init__(self, growth0: int = 64, config: str = "B",
-                 n_colors: int = 3,
+                 n_colors: int = 3, upsampling: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32, halo=None):
         super().__init__()
         d, c, g = RDN_CONFIGS[config]
         self.growth0 = growth0
+        self.n_colors = n_colors
         self.n_blocks = d
         kw = dict(generator=generator, dtype=dtype, halo=halo)
         self.sfe1 = Conv(n_colors, growth0, 3, **kw)
@@ -67,13 +74,32 @@ class RDN(nn.Module):
             self.add_module(f"rdb{i}", RDB(growth0, g, c, **kw))
         self.gff1 = Conv(d * growth0, growth0, 1, **kw)
         self.gff2 = Conv(growth0, growth0, 3, **kw)
+        self.upsampling = upsampling
+        # the head's convs and the pixel-shuffle factor after each but the
+        # last (as the JAX head, they take no halo)
+        head = dict(generator=generator, dtype=dtype)
+        if not upsampling:
+            self.shuffles = []
+        elif upsampling in (2, 3):
+            r = upsampling
+            self.shuffles = [r]
+            self.up0 = Conv(growth0, g * r * r, 3, **head)
+            self.up1 = Conv(g, n_colors, 3, **head)
+        elif upsampling == 4:
+            self.shuffles = [2, 2]
+            self.up0 = Conv(growth0, g * 4, 3, **head)
+            self.up1 = Conv(g, g * 4, 3, **head)
+            self.up2 = Conv(g, n_colors, 3, **head)
+        else:
+            raise ValueError("upsampling scale must be 2, 3 or 4")
 
     @property
     def out_dim(self) -> int:
-        return self.growth0
+        return self.n_colors if self.upsampling else self.growth0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, n_colors) -> (B, H, W, G0)."""
+        """(B, H, W, n_colors) -> (B, H, W, G0), or with the head
+        (B, H*r, W*r, n_colors)."""
         x = x.permute(0, 3, 1, 2)
         f1 = self.sfe1(x)
         y = self.sfe2(f1)
@@ -83,7 +109,18 @@ class RDN(nn.Module):
             block_outs.append(y)
         y = self.gff1(torch.cat(block_outs, dim=1))
         y = self.gff2(y) + f1
+        for i, r in enumerate(self.shuffles):
+            y = F.pixel_shuffle(getattr(self, f"up{i}")(y), r)
+        if self.shuffles:
+            y = getattr(self, f"up{len(self.shuffles)}")(y)
         return y.permute(0, 2, 3, 1)
+
+
+class RDNSmall(RDN):
+    """Reduced RDN for tests: the same wiring at G0 16, config "tiny"."""
+
+    def __init__(self, growth0: int = 16, config: str = "tiny", **kwargs):
+        super().__init__(growth0=growth0, config=config, **kwargs)
 
 
 def make_rdn(*, growth0: int = 64, config: str = "B",

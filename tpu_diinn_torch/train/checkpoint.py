@@ -19,6 +19,10 @@ so ``best`` has no training state. Both files of ``last`` are written
 atomically, and the step in the two metas must agree (a pair from two
 saves is refused).
 The JAX package's orbax directories have no counterpart.
+``export_params_npz`` turns a checkpoint of the trainer into the compact,
+committable export (``results/*_weights.npz``): every float array stored
+as bf16 bits, rounded in numpy as ``ml_dtypes`` rounds, and the file
+compressed.
 
 ``state_dict_from_jax`` maps the flax parameter paths onto the port's
 module names: ``params/<module path>/conv/kernel`` (HWIO) becomes
@@ -40,6 +44,25 @@ import numpy as np
 import torch
 
 _BF16 = "bf16:"
+
+
+def f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """Round float values to bf16, to nearest with ties to even, as their
+    uint16 bit patterns: ``a.astype(ml_dtypes.bfloat16).view(np.uint16)``
+    bit for bit (wider floats are narrowed to float32 first, as there;
+    subnormals round like any other value, +-0 and +-inf stay as they
+    are, values past the largest bf16 round to inf, and every NaN becomes
+    the quiet NaN of its sign, 0x7fc0 or 0xffc0)."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    u = a.view(np.uint32)
+    # adding 0x7fff, plus the kept half's lowest bit, carries into the kept
+    # half exactly when the dropped half is above the tie, or at it with
+    # the kept half odd
+    bias = np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    out = ((u + bias) >> np.uint32(16)).astype(np.uint16)
+    nan = np.isnan(a)
+    out[nan] = np.where(np.signbit(a[nan]), 0xFFC0, 0x7FC0)
+    return out
 
 
 def bf16_bits_to_f32(u: np.ndarray) -> np.ndarray:
@@ -254,13 +277,38 @@ class CheckpointManager:
         return flat, meta, arrays, state_meta
 
 
-def load_params(ckpt_path: str) -> Tuple[Dict[str, np.ndarray], dict]:
+def load_params(ckpt_path: str, tag: str = "best"
+                ) -> Tuple[Dict[str, np.ndarray], dict]:
     """(flat params, meta) from a ``.npz`` export, a checkpoint directory
-    (its ``best.npz``), or a checkpoint's ``best``/``last`` named without
-    its suffix; as ``tpu_diinn/train/checkpoint.load_params``."""
+    (its ``<tag>.npz``: ``best`` or ``last``), or a checkpoint's
+    ``best``/``last`` named without its suffix; as
+    ``tpu_diinn/train/checkpoint.load_params``."""
     p = Path(ckpt_path)
     if p.suffix == ".npz":
         return load_params_npz(str(p))
     if p.is_dir():
-        return load_params_npz(str(p / "best.npz"))
+        return load_params_npz(str(p / f"{tag}.npz"))
     return load_params_npz(str(p.with_name(p.name + ".npz")))
+
+
+def export_params_npz(ckpt_path: str, out_path: str,
+                      tag: str = "best") -> dict:
+    """Write the parameters of checkpoint ``ckpt_path`` (anything
+    ``load_params`` reads; ``tag`` picks ``best`` or ``last`` of a
+    directory) to ``out_path`` as the compact export: each float array as
+    the uint16 bits of its bf16 rounding under ``bf16:<path>``, any other
+    array raw, and ``__meta__`` with the checkpoint's step, epoch,
+    val_loss and config, by ``np.savez_compressed``. Returns that meta.
+    ``tpu_diinn.train.checkpoint.load_params`` reads the file."""
+    flat, meta = load_params(ckpt_path, tag)
+    payload = {}
+    for key, arr in flat.items():
+        if np.issubdtype(arr.dtype, np.floating):
+            payload[_BF16 + key] = f32_to_bf16_bits(arr)
+        else:
+            payload[key] = arr
+    slim = {k: meta[k] for k in ("step", "epoch", "val_loss", "config")
+            if k in meta}
+    np.savez_compressed(out_path, __meta__=np.str_(json.dumps(slim)),
+                        **payload)
+    return slim
