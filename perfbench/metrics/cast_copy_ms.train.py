@@ -1,0 +1,8 @@
+"""Device ms of the copy, cast and concatenation kernels per traced
+training step."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.group_ms(run, "cast_copy")

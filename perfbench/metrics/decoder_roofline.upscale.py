@@ -1,0 +1,8 @@
+"""% of its roofline: the least time of the traced requests' decodes over
+the decoder kernels' device time."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "decoder", run.stretch_decoder_least_s)

@@ -1,0 +1,8 @@
+"""% of the bf16 peak: model FLOPs of the traced steps (forward and
+backward) over their span, in the cells over the EDSR-baseline encoder."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.mfu(run)

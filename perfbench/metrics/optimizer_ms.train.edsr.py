@@ -1,0 +1,8 @@
+"""Device ms of the optimizer's kernels per traced training step, in the
+cells over the EDSR-baseline encoder."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.group_ms(run, "optimizer")

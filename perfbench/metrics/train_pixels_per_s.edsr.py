@@ -1,0 +1,8 @@
+"""HR pixels of every training step of the window, per window second, in
+the cells over the EDSR-baseline encoder."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.rate(run)

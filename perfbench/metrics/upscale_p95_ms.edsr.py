@@ -1,0 +1,8 @@
+"""The 95th percentile of the latency of every request of the window, ms,
+in the cells over the EDSR-baseline encoder."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.latency_ms(run, 95)
