@@ -614,3 +614,54 @@ def test_bucketed_graph_replays_match_eager_and_count_launches(scale, kind,
         torch.cuda.synchronize()
     assert sum(e.count for e in prof.key_averages()
                if "decode_fwd_kernel<" in e.key) == per_run
+
+
+
+def test_spans_reach_a_profiler_that_records_the_host_and_not_cuda_alone():
+    """One bf16 fused training step (rdn-tiny, hidden 32, scales 2 and 3)
+    under the profiler as the benchmark's traced stretch starts it
+    (``perfbench/trace.py::Stretch``, CUDA activity alone), and under one
+    that records the host too (the trainer's ``trainer.profile_dir``
+    window, ``profiling.trace``). With CUDA alone the profiler registers
+    no callback for ``record_function``, so no program span is recorded;
+    with the host, every span is a host event, the decoder's backward on
+    autograd's thread among them, and ``build_trace`` keeps none of their
+    echoes as a device operation."""
+    from torch.profiler import ProfilerActivity, profile
+    from perfbench import spans, trace
+    from tpu_diinn_torch.config.config import load_config
+    from tpu_diinn_torch.train import loop
+    dev = _device()
+    cfg = load_config(None, ["model.encoder=rdn-tiny",
+                             "model.hidden_dims=[32,32,32]",
+                             "model.dtype=bfloat16"])
+    state = loop.init_state(cfg, 1000, device=dev)
+    step = loop.make_train_step(state)
+    rng = np.random.default_rng(0)
+    batch = {s: (rng.random((2, 12, 12, 3), dtype=np.float32),
+                 rng.random((2, 12 * s, 12 * s, 3), dtype=np.float32))
+             for s in (2, 3)}
+    step(loop.to_device(batch, dev))
+    stretch = trace.Stretch(True, 0, 1, torch.cuda.synchronize)
+    stretch.begin(0)
+    step(loop.to_device(batch, dev))
+    stretch.end(0)
+    names = set(spans.LAYER_OF) | {"train_step 2", "train_step 3"}
+    cuda_only = stretch.trace
+    assert cuda_only.busy_s > 0 and not spans.program_spans(cuda_only)
+    assert not {n for n, _, _ in cuda_only.device} & names
+    before = dict(K.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(loop.to_device(batch, dev))
+        torch.cuda.synchronize()
+    assert K.launches["decode_int_bwd_bf16"] == (
+        before["decode_int_bwd_bf16"] + 2)
+    t = trace.build_trace(prof, 1, 0.0)
+    assert {"train_step 3", "step.forward", "step.backward", "step.update",
+            "to_device", "encoder", "lr_conv", "decoder", "decoder.prepare",
+            "decoder.backward", "decoder.backward.prepare"} <= {
+                n for n, _, _ in spans.program_spans(t)}
+    assert not {n for n, _, _ in t.device} & names
+    assert spans.idle_by_layer(t) is not None

@@ -10,14 +10,20 @@
 - ``trainer.debug_nans`` leaves finite runs unchanged: the same losses
   and parameters, bit for bit, as without it.
 - ``synced_time`` calls its function ``warmup + iters`` times.
+- The program's spans (``profiling.span``): a training step and its
+  batch copy, and a chunked request, leave their named ranges on a
+  running profiler's timeline, each inside its parent; with no profiler
+  a span is one shared null context and records nothing.
 """
 
+import contextlib
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tpu_diinn.config.config import load_config as jload_config
 from tpu_diinn.train import loop as jloop
@@ -115,3 +121,94 @@ def test_synced_time_calls_warmup_plus_iters():
     secs = profiling.synced_time(lambda x: calls.append(x), 7, iters=5,
                                  warmup=3)
     assert calls == [7] * 8 and secs >= 0.0
+
+
+def _host_ranges(prof) -> dict:
+    """name -> [(start us, end us)] of every range the profiler recorded."""
+    out = {}
+    for ev in prof.events():
+        out.setdefault(ev.name, []).append((ev.time_range.start,
+                                            ev.time_range.end))
+    return out
+
+
+def _inside(child, parent) -> bool:
+    return parent[0] <= child[0] and child[1] <= parent[1]
+
+
+def test_a_step_and_its_batch_copy_record_nested_spans():
+    from torch.profiler import ProfilerActivity, profile
+    cfg = load_config(None, TINY + ["data.train_scales=[2,3]"])
+    state = loop.init_state(cfg, 1000, device="cpu")
+    step = loop.make_train_step(state)
+    d = tds.SyntheticSRDataset(n_images=2, scales=(2, 3), patch_size=12,
+                               seed=5)
+    it = tpipe.train_batches(d, batch_size=2, epoch=0, seed=9,
+                             num_workers=0)
+    batch = next(it)
+    it.close()
+    step(loop.to_device(batch, "cpu"))      # step 1, no profiler
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(loop.to_device(batch, "cpu"))
+    r = _host_ranges(prof)
+    (whole,) = r["train_step 2"]
+    assert "train_step 1" not in r
+    (feed,) = r["to_device"]
+    assert feed[1] <= whole[0]
+    (fwd,) = r["step.forward"]
+    (bwd,) = r["step.backward"]
+    assert all(_inside(s, whole) for s in (fwd, bwd, *r["step.update"]))
+    assert fwd[1] <= bwd[0] <= bwd[1] <= max(e for _, e in r["step.update"])
+    (enc,) = r["encoder"]                   # one pass over both scales
+    assert _inside(enc, fwd)
+    assert len(r["decoder"]) == 2 and all(_inside(d, fwd)
+                                          for d in r["decoder"])
+    for name, parents in (("lr_conv", "decoder"),
+                          ("decoder.prepare", "decoder"),
+                          ("decoder.backward", "step.backward")):
+        assert r[name] and all(any(_inside(c, p) for p in r[parents])
+                               for c in r[name]), name
+    # the two scales' prepares: grid and packing, then casts and slabs
+    assert len(r["decoder.prepare"]) == 4
+    # the CPU's backward takes the plain version: no kernel buffers
+    assert "decoder.backward.prepare" not in r
+
+
+def test_a_chunked_request_records_one_window_span_a_chunk():
+    from torch.profiler import ProfilerActivity, profile
+    cfg = load_config(None, TINY + ["model.eval_bsize=44"])
+    task = loop.build_task(cfg, device="cpu")
+    lr = torch.rand((1, 7, 9, 3), generator=torch.Generator().manual_seed(3))
+    size = (22, 28)                          # x3.14, 44 // 22 = 2 columns
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        out = task.predict(lr, size)
+    assert out.shape == (1, 22, 28, 3)
+    r = _host_ranges(prof)
+    (whole,) = r["predict"]
+    (dec,) = r["decoder"]
+    assert _inside(r["encoder"][0], whole) and _inside(dec, whole)
+    assert len(r["decoder.window"]) == 14
+    assert all(_inside(w, dec) for w in r["decoder.window"])
+    # the packed weights and index vectors once, then each window's grid
+    # and the weight casts of each window's decode
+    assert len(r["decoder.prepare"]) == 1 + 14 * 2
+
+
+def test_a_span_without_a_profiler_is_one_shared_null_context():
+    from torch.profiler import ProfilerActivity, profile
+    first = profiling.span("to_device")
+    assert isinstance(first, contextlib.nullcontext)
+    assert all(profiling.span(n) is first
+               for n in ("encoder", "decoder", "train_step 7"))
+    opened = profiling.span("decoder.prepare")
+    opened.__enter__()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        inner = profiling.span("decoder.window")
+        with inner:
+            torch.ones(3).sum()
+        assert inner is not first
+    opened.__exit__(None, None, None)
+    assert profiling.span("decoder") is first
+    names = set(_host_ranges(prof))
+    assert "decoder.window" in names and "decoder.prepare" not in names

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from tpu_diinn_torch.core.fastmath import _poly_sin, _poly_sincos
+from tpu_diinn_torch.train.profiling import span
 
 # Hidden widths the CUDA kernels are instantiated for (one template
 # instance each, sized at compile time: each of a CTA's two warpgroups owns
@@ -282,12 +283,13 @@ class _Decode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, route, syn, z, *weights):
         ctx.route = route
-        weights = tuple(w.to(z.dtype) if k in WEIGHT_KEYS else w
-                        for k, w in zip(PARAM_KEYS, weights))
-        ctx.save_for_backward(syn, z, *weights)
-        p = dict(zip(PARAM_KEYS, weights))
-        ctx.slabs = None if z.device.type == "cpu" else forward_slabs(
-            p["wcat"])
+        with span("decoder.prepare"):
+            weights = tuple(w.to(z.dtype) if k in WEIGHT_KEYS else w
+                            for k, w in zip(PARAM_KEYS, weights))
+            ctx.save_for_backward(syn, z, *weights)
+            p = dict(zip(PARAM_KEYS, weights))
+            ctx.slabs = None if z.device.type == "cpu" else forward_slabs(
+                p["wcat"])
         if route[0] == "int":
             return decode_int_fwd(z, syn, route[1], route[2], p, ctx.slabs)
         return decode_window_fwd(z, syn, route[1], route[2], p, ctx.slabs)
@@ -295,17 +297,18 @@ class _Decode(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        syn, z, *weights = ctx.saved_tensors
-        p = dict(zip(PARAM_KEYS, weights))
-        route = ctx.route
-        g = g.to(torch.float32).contiguous()
-        if route[0] == "int":
-            dz, grads = decode_int_bwd(z, syn, route[1], route[2], p, g,
-                                       ctx.slabs)
-        else:
-            dz, grads = decode_window_bwd(z, syn, route[1], route[2], p, g,
-                                          ctx.slabs)
-        return (None, None, dz, *(grads[k] for k in PARAM_KEYS))
+        with span("decoder.backward"):
+            syn, z, *weights = ctx.saved_tensors
+            p = dict(zip(PARAM_KEYS, weights))
+            route = ctx.route
+            g = g.to(torch.float32).contiguous()
+            if route[0] == "int":
+                dz, grads = decode_int_bwd(z, syn, route[1], route[2], p, g,
+                                           ctx.slabs)
+            else:
+                dz, grads = decode_window_bwd(z, syn, route[1], route[2], p,
+                                              g, ctx.slabs)
+            return (None, None, dz, *(grads[k] for k in PARAM_KEYS))
 
 
 def decode(z: torch.Tensor, syn: torch.Tensor, params: dict, *,
@@ -580,24 +583,25 @@ def _bwd_buffers(z: torch.Tensor, n_query: int, run: int, h: int,
     of [Wkq | Wq] (``fwd_slabs`` unless None) and of its transpose, and the
     scratch buffer of one backward call (``run``: as ``bwd_scratch_bytes``).
     """
-    dev = z.device
-    sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
-             "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
-    n_grad = sum(int(np.prod(s)) for s in sizes.values())
-    flat = torch.empty(n_grad, dtype=torch.float32, device=dev)
-    grads, at = {}, 0
-    for k, shape in sizes.items():
-        n = int(np.prod(shape))
-        grads[k] = flat[at:at + n].view(shape)
-        at += n
-    n_pix = z.shape[0] * z.shape[1] * z.shape[2]
-    scratch = torch.empty(bwd_scratch_bytes(n_query, n_pix, run, h,
-                                            n_layers, z.dtype),
-                          dtype=torch.uint8, device=dev)
-    wcat = params["wcat"].detach()
-    slabs = (forward_slabs(wcat) if fwd_slabs is None else fwd_slabs,
-             mma_b_slabs(chain_b_operands(wcat)[1]))
-    return torch.empty_like(z), flat, grads, slabs, scratch
+    with span("decoder.backward.prepare"):
+        dev = z.device
+        sizes = {"w0": (3, h), "b0": (h,), "wcat": (n_layers - 1, h, 2 * h),
+                 "bcat": (n_layers - 1, 2 * h), "wl": (h, 3), "bl": (3,)}
+        n_grad = sum(int(np.prod(s)) for s in sizes.values())
+        flat = torch.empty(n_grad, dtype=torch.float32, device=dev)
+        grads, at = {}, 0
+        for k, shape in sizes.items():
+            n = int(np.prod(shape))
+            grads[k] = flat[at:at + n].view(shape)
+            at += n
+        n_pix = z.shape[0] * z.shape[1] * z.shape[2]
+        scratch = torch.empty(bwd_scratch_bytes(n_query, n_pix, run, h,
+                                                n_layers, z.dtype),
+                              dtype=torch.uint8, device=dev)
+        wcat = params["wcat"].detach()
+        slabs = (forward_slabs(wcat) if fwd_slabs is None else fwd_slabs,
+                 mma_b_slabs(chain_b_operands(wcat)[1]))
+        return torch.empty_like(z), flat, grads, slabs, scratch
 
 
 def _bwd_weights(params: dict, slabs: tuple) -> list:

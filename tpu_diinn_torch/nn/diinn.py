@@ -60,6 +60,7 @@ from tpu_diinn_torch.core.fastmath import fast_sin
 from tpu_diinn_torch.kernels import decoder_fused as kern
 from tpu_diinn_torch.nn.layers import Conv, Dense, unfold3x3
 from tpu_diinn_torch.parallel.sharding import stripe_columns
+from tpu_diinn_torch.train.profiling import span
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -151,14 +152,15 @@ class ImplicitDecoder(nn.Module):
                     ) -> Tuple[Optional[torch.Tensor], ...]:
         """All content-branch 3x3 convs at LR resolution, each NHWC; with
         ``init_q``, the unfolded features alone."""
-        if self.init_q:
-            return (unfold3x3(feat),)
-        x = _nchw(feat)
-        zs = [_nhwc(self.k0_conv(x))]
-        for i in range(1, self.n_layers):
-            kx = getattr(self, f"kx{i}", None)
-            zs.append(_nhwc(kx(x)) if kx is not None else None)
-        return tuple(zs)
+        with span("lr_conv"):
+            if self.init_q:
+                return (unfold3x3(feat),)
+            x = _nchw(feat)
+            zs = [_nhwc(self.k0_conv(x))]
+            for i in range(1, self.n_layers):
+                kx = getattr(self, f"kx{i}", None)
+                zs.append(_nhwc(kx(x)) if kx is not None else None)
+            return tuple(zs)
 
     def lr_features_stacked(self, feat: torch.Tensor) -> torch.Tensor:
         """The channel-stacked content features as ONE 3x3 conv with the
@@ -166,20 +168,21 @@ class ImplicitDecoder(nn.Module):
         Returns a contiguous (B, H, W, L*hidden) tensor in the compute
         dtype (bf16: the conv and the bias add each round to bf16, as the
         JAX package's)."""
-        ws = [self.k0_conv.conv.weight]
-        bs = [self.k0_conv.conv.bias]
-        for i in range(1, self.n_layers):
-            ws.append(getattr(self, f"kx{i}").conv.weight)
-            bs.append(getattr(self, f"kq{i}").dense.bias)
-        if self.dtype == torch.float32:
-            y = F.conv2d(_nchw(feat), torch.cat(ws, dim=0), torch.cat(bs),
-                         padding=1)
-        else:
-            dt = self.dtype
-            y = (F.conv2d(_nchw(feat).to(dt), torch.cat(ws, dim=0).to(dt),
-                          padding=1)
-                 + torch.cat(bs).to(dt)[:, None, None])
-        return _nhwc(y).contiguous()
+        with span("lr_conv"):
+            ws = [self.k0_conv.conv.weight]
+            bs = [self.k0_conv.conv.bias]
+            for i in range(1, self.n_layers):
+                ws.append(getattr(self, f"kx{i}").conv.weight)
+                bs.append(getattr(self, f"kq{i}").dense.bias)
+            if self.dtype == torch.float32:
+                y = F.conv2d(_nchw(feat), torch.cat(ws, dim=0),
+                             torch.cat(bs), padding=1)
+            else:
+                dt = self.dtype
+                y = (F.conv2d(_nchw(feat).to(dt),
+                              torch.cat(ws, dim=0).to(dt), padding=1)
+                     + torch.cat(bs).to(dt)[:, None, None])
+            return _nhwc(y).contiguous()
 
     # -- HR-side per-query network ----------------------------------------
     def hr_step(self, zs_hr: Tuple[Optional[torch.Tensor], ...],
@@ -229,26 +232,32 @@ class ImplicitDecoder(nn.Module):
 
     def forward(self, feat: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:
-        _, h_in, w_in, _ = feat.shape
-        h_out, w_out = size
-        s_h, rem_h = divmod(h_out, h_in)
-        s_w, rem_w = divmod(w_out, w_in)
-        if (self._fused_ok(feat) and rem_h == 0 and rem_w == 0
-                and 1 <= s_h <= kern.MAX_INT_RATIO
-                and 1 <= s_w <= kern.MAX_INT_RATIO):
-            z = self.lr_features_stacked(feat)
-            # built in the features' dtype, as the JAX decoder builds it;
-            # the kernels' syn is fp32
-            syn = grids.syn_input_grid((h_in, w_in), (h_out, w_out),
-                                       dtype=feat.dtype, device=feat.device)
-            return kern.decode(z, syn.float(), self._fused_params(),
-                               ratio=(s_h, s_w)).to(z.dtype)
-        # serial column chunks of bsize // H_out queries (reference
-        # batched_step); the LR features are computed once for all chunks
-        window = self.windows(feat, size)
-        chunk = w_out if bsize is None else max(1, bsize // h_out)
-        return torch.cat([window(0, h_out, slice(lo, min(lo + chunk, w_out)))
-                          for lo in range(0, w_out, chunk)], dim=2)
+        with span("decoder"):
+            _, h_in, w_in, _ = feat.shape
+            h_out, w_out = size
+            s_h, rem_h = divmod(h_out, h_in)
+            s_w, rem_w = divmod(w_out, w_in)
+            if (self._fused_ok(feat) and rem_h == 0 and rem_w == 0
+                    and 1 <= s_h <= kern.MAX_INT_RATIO
+                    and 1 <= s_w <= kern.MAX_INT_RATIO):
+                z = self.lr_features_stacked(feat)
+                with span("decoder.prepare"):
+                    # built in the features' dtype, as the JAX decoder
+                    # builds it; the kernels' syn is fp32
+                    syn = grids.syn_input_grid((h_in, w_in), (h_out, w_out),
+                                               dtype=feat.dtype,
+                                               device=feat.device).float()
+                    params = self._fused_params()
+                return kern.decode(z, syn, params,
+                                   ratio=(s_h, s_w)).to(z.dtype)
+            # serial column chunks of bsize // H_out queries (reference
+            # batched_step); the LR features are computed once for all
+            # chunks
+            window = self.windows(feat, size)
+            chunk = w_out if bsize is None else max(1, bsize // h_out)
+            return torch.cat([window(0, h_out,
+                                     slice(lo, min(lo + chunk, w_out)))
+                              for lo in range(0, w_out, chunk)], dim=2)
 
     def windows(self, feat: torch.Tensor, size: Tuple[int, int]):
         """``window(row_lo, row_hi, cols)``: the decode of rows [row_lo,
@@ -282,21 +291,28 @@ class ImplicitDecoder(nn.Module):
             return grids.syn_from_axes(ry[r0:r1], pick(rx, cols), ratio)
         if self._fused_ok(feat):
             z = self.lr_features_stacked(feat)
-            params = self._fused_params()
-            # index vectors uploaded once; each window reads views of them
-            rows_v = kern.index_vector(rows, h_in, feat.device)
-            cols_v = kern.index_vector(cols_lr, w_in, feat.device)
+            with span("decoder.prepare"):
+                params = self._fused_params()
+                # index vectors uploaded once; each window reads views
+                rows_v = kern.index_vector(rows, h_in, feat.device)
+                cols_v = kern.index_vector(cols_lr, w_in, feat.device)
 
-            def window(r0, r1, cols):
-                return kern.decode(z, syn(r0, r1, cols).float(), params,
-                                   rows=rows_v[r0:r1],
-                                   cols=pick(cols_v, cols)).to(z.dtype)
+            def decode(r0, r1, cols):
+                with span("decoder.prepare"):
+                    grid = syn(r0, r1, cols).float()
+                    cols_w = pick(cols_v, cols)
+                return kern.decode(z, grid, params, rows=rows_v[r0:r1],
+                                   cols=cols_w).to(z.dtype)
         else:
             zs = self.lr_features(feat)
 
-            def window(r0, r1, cols):
+            def decode(r0, r1, cols):
                 return self.decode_window(zs, syn(r0, r1, cols),
                                           rows[r0:r1], cols_lr[cols])
+
+        def window(r0, r1, cols):
+            with span("decoder.window"):
+                return decode(r0, r1, cols)
         return window
 
     def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
@@ -387,4 +403,6 @@ class DIINN(nn.Module):
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:
-        return self.decoder(self.encoder(x), size, bsize)
+        with span("encoder"):
+            feat = self.encoder(x)
+        return self.decoder(feat, size, bsize)

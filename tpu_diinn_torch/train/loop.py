@@ -141,25 +141,31 @@ def make_train_step(state: TrainState, debug_nans: bool = False,
             return loss / mesh.data.size if mesh.data.size > 1 else loss
 
     def step(batch) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = local_loss(batch)
-        total = (pmesh.all_reduce_sum_(loss.detach().clone()) if sharded
-                 else loss.detach())
-        if debug_nans:
-            profiling.check_finite(state.step + 1, loss=total)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if sharded:     # one all-reduce over the flattened gradients
-            flat = pmesh.all_reduce_sum_(
-                torch.cat([g.reshape(-1) for g in grads]))
-            torch._foreach_copy_(grads, [
-                part.view_as(g) for g, part in
-                zip(grads, flat.split([g.numel() for g in grads]))])
-        gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        if debug_nans:
-            profiling.check_finite(state.step + 1, grad_norm=gnorm)
-        apply_update(state)
-        return {"loss": total, "grad_norm": gnorm}
+        with profiling.span(f"train_step {state.step + 1}"):
+            with profiling.span("step.update"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("step.forward"):
+                loss = local_loss(batch)
+            total = (pmesh.all_reduce_sum_(loss.detach().clone()) if sharded
+                     else loss.detach())
+            if debug_nans:
+                profiling.check_finite(state.step + 1, loss=total)
+            with profiling.span("step.backward"):
+                loss.backward()
+            grads = [p.grad for p in params if p.grad is not None]
+            if sharded:     # one all-reduce over the flattened gradients
+                flat = pmesh.all_reduce_sum_(
+                    torch.cat([g.reshape(-1) for g in grads]))
+                torch._foreach_copy_(grads, [
+                    part.view_as(g) for g, part in
+                    zip(grads, flat.split([g.numel() for g in grads]))])
+            with profiling.span("step.update"):
+                gnorm = torch.stack([g.square().sum()
+                                     for g in grads]).sum().sqrt()
+                if debug_nans:
+                    profiling.check_finite(state.step + 1, grad_norm=gnorm)
+                apply_update(state)
+            return {"loss": total, "grad_norm": gnorm}
 
     return step
 
@@ -179,9 +185,10 @@ def restore_state(state: TrainState, ckpt_dir: str) -> dict:
 
 def to_device(batch, device) -> Dict[float, tuple]:
     """A numpy batch {scale: (lr, hr)} as tensors on ``device``."""
-    return {s: (torch.from_numpy(lr).to(device),
-                torch.from_numpy(hr).to(device))
-            for s, (lr, hr) in batch.items()}
+    with profiling.span("to_device"):
+        return {s: (torch.from_numpy(lr).to(device),
+                    torch.from_numpy(hr).to(device))
+                for s, (lr, hr) in batch.items()}
 
 
 def _build_set(cfg: Config, name: str, split: str, *, scales,
@@ -370,9 +377,7 @@ def train(cfg: Config, *, max_steps: Optional[int] = None, device="cuda",
                     num_workers=d.num_workers,
                     shard_index=mesh.data.index,
                     num_shards=mesh.data.size):
-                with (prof.annotate(state.step + 1) if prof
-                      else contextlib.nullcontext()):
-                    m = step_fn(to_device(batch, device))
+                m = step_fn(to_device(batch, device))
                 if prof:
                     prof.after_step(state.step)
                 losses.append(m["loss"])

@@ -8,6 +8,9 @@ Counterpart of ``tpu_diinn/train/profiling.py``:
 - ``StepProfiler``: the trainer's ``trainer.profile_dir`` window, which
   opens once 2 steps have run past the first one and covers
   ``profile_steps`` steps, as the JAX trainer's ``maybe_profile``;
+- ``span(name)``: a named range of the program on the profiler's own
+  timeline while a ``torch.profiler`` window that records the host is
+  open (this module's, or a caller's), and nothing otherwise;
 - ``enable_debug_nans``: autograd's anomaly mode, with ``check_finite``
   on each step's loss and gradient norm, so that a non-finite value
   raises as under ``jax_debug_nans``;
@@ -23,6 +26,34 @@ import time
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler is
+    running, else one shared null context: no profiler, no record, and
+    one global read a call. Host-only, so harmless under CUDA graph
+    capture. Only a profiler that records the host (``ProfilerActivity.
+    CPU``, as ``trace`` does) keeps the range: one of CUDA activity alone
+    registers no callback for ``record_function`` and keeps none.
+
+    The port's spans, each opened where its work happens:
+    ``train_step <n>`` (the whole step, n the 1-based global step),
+    ``step.forward``, ``step.backward``, ``step.update`` (zero_grad, the
+    gradient norm, Adam and the schedule) and ``to_device``
+    (``train/loop.py``); ``predict`` (``train/task.py``); ``encoder`` (a
+    pass of the encoder), ``lr_conv`` (the LR convs), ``decoder``,
+    ``decoder.prepare`` (the fused route's host preparation: synthesis
+    grid, packed weights, index vectors, weight casts and slabs) and
+    ``decoder.window`` (one window of ``ImplicitDecoder.windows``)
+    (``nn/diinn.py``); ``decoder.backward`` and
+    ``decoder.backward.prepare`` (its buffers and slabs)
+    (``kernels/decoder_fused.py``)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _sync() -> None:
@@ -59,9 +90,9 @@ class StepProfiler:
     """The trainer's trace window: call ``after_step(step)`` with the
     global step after every training step and ``close()`` at the end. The
     window (a ``trace``) opens after step ``first_step + 2`` (two warm-up
-    steps) and closes after ``profile_steps`` more; ``annotate(step)``
-    marks a step inside it as ``train_step <step>`` (1-based global
-    step)."""
+    steps) and closes after ``profile_steps`` more; each step inside it
+    carries the step's own spans (``span``), ``train_step <step>`` (1-based
+    global step) the outermost."""
 
     def __init__(self, log_dir: str, profile_steps: int, first_step: int):
         self.log_dir = log_dir
@@ -69,11 +100,6 @@ class StepProfiler:
         self.first_step = first_step
         self.stop_at = -1
         self._window = None
-
-    def annotate(self, step: int):
-        if self._window is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"train_step {step}")
 
     def after_step(self, step: int) -> None:
         if (self._window is None and self.stop_at < 0

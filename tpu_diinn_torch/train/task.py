@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from tpu_diinn_torch.train.profiling import span
+
 SUB = 0.5
 DIV = 0.5
 
@@ -71,7 +73,8 @@ class SRTask:
         if len({tuple(lr.shape) for _, (lr, _) in items}) != 1:
             return None
         x = torch.cat([normalize(lr) for _, (lr, _) in items], dim=0)
-        return self.net.encoder(x)
+        with span("encoder"):
+            return self.net.encoder(x)
 
     def train_loss(self, batch: Batch) -> torch.Tensor:
         loss, _ = self.loss_and_preds(batch)
@@ -108,6 +111,7 @@ class SRTask:
     def predict(self, lr: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:
         """[0, 1] NHWC in -> [0, 1] clamped NHWC out."""
-        pred = self.net(normalize(lr), size,
-                        bsize if bsize is not None else self.eval_bsize)
-        return torch.clamp(denormalize(pred), 0.0, 1.0)
+        with span("predict"):
+            pred = self.net(normalize(lr), size,
+                            bsize if bsize is not None else self.eval_bsize)
+            return torch.clamp(denormalize(pred), 0.0, 1.0)
