@@ -57,11 +57,19 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    the fp32 chain on the same inputs to at most 1.5x the plain bf16
    version's (+ 1e-5 of the largest magnitude); with ``bound_ms`` at the
    bf16 tensor-core peak;
+3c. encoder_conv: the fp32 inference encoder's implicit-GEMM conv
+   (``kernels/encoder_conv``) at every RDN-B shape of a 192x256 request
+   and the stacked LR conv's, with bias and ReLU, held to 4e-6 of cuDNN
+   fp32's largest magnitude (TF32 off), with its ms, its 3xTF32 bound, the
+   plain version's ms and cuDNN fp32's own on NCHW (``library_ms``), and
+   the sums over a request (``encoder_conv_phase``); the build phase
+   requires ``HGMMA`` in every instance of it;
 4. slice, eval: the flagship benchmark evaluation through the benchmark
    CLI's ``main`` on the exact-shape route (``--eval_buckets 0``, as
    phases 4b and 6a; phase 10 runs the CLI's default, bucketed route)
-   (4 sets x scales {3.14, 4, 8}); both forward kernels
-   must have been launched, and all 36 metrics must match the committed
+   (4 sets x scales {3.14, 4, 8}); both forward kernels must have been
+   launched, the encoder conv 149 times a request (RDN-B's 148 convs and
+   the stacked LR conv), and all 36 metrics must match the committed
    JAX-CPU oracle (|dPSNR|, |dLR-PSNR| <= 2e-3 dB, |dSSIM| <= 1e-4: cuDNN
    and XLA-CPU sum the encoder's convolutions in different orders); CUDA
    events around every decoder call give its device seconds;
@@ -118,9 +126,10 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    b. DIINN with the EDSR-baseline encoder (``BASELINE.json``
       ``configs[0]``: mode 3, hidden 4 x 256) on ``seeded_params``
       weights, Set5 at x2 and x3.14: both forward kernels launched, the
-      per-image summaries (mean, mean square, largest magnitude, 256
-      seeded pixels of the un-clamped prediction) within 1e-4 relative
-      plus 1e-4 of the largest magnitude of the JAX-CPU oracle's;
+      encoder conv 35 times a request, the per-image summaries (mean,
+      mean square, largest magnitude, 256 seeded pixels of the un-clamped
+      prediction) within 1e-4 relative plus 1e-4 of the largest magnitude
+      of the JAX-CPU oracle's;
    c. DIINN mode 3 with ``init_q`` (RDN-B, hidden 4 x 256, seeded
       weights): the output summaries of a seeded batch of 4 48-px LR
       patches at x2.5, at 6b's bounds, and one training step's loss and
@@ -233,12 +242,15 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       launched, each metric within 1e-6 of phase 10a's;
    c. RDN-B with its PixelShuffle head at x2, x3, x4 on a seeded batch
       of 2 LR images of 48²: the card's output within 1e-4 of the largest
-      magnitude of the CPU's, with the card's ms; no decoder kernel;
+      magnitude of the CPU's, with the card's ms; no decoder kernel and no
+      encoder conv;
 7. the phases' total seconds (a ``total`` line), a ``kernels`` JSON line
    (each row with its times at every training shape under
    ``train_shapes``, the forwards' eval shapes under
    ``eval_shapes``; the bf16 instances as rows of their own, ``dtype``
-   bfloat16; ``launches_by_path`` with every path above), and last the
+   bfloat16; ``launches_by_path`` with every path above; a row for the
+   encoder conv with phase 3c's sums over a request and its launches on
+   every path, which every phase counts beside the decoder's), and last the
    device JSON line.
 
 Any failure raises and exits non-zero; nothing is caught. Without CUDA it
@@ -279,6 +291,7 @@ from tpu_diinn_torch.kernels import build
 from tpu_diinn_torch.native import loader as native_loader
 from tpu_diinn_torch.parallel import launch, sharding
 from tpu_diinn_torch.kernels import decoder_fused as K
+from tpu_diinn_torch.kernels import encoder_conv as EC
 from tpu_diinn_torch.nn.rdn import RDN
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops, loop, profiling
@@ -320,6 +333,7 @@ REPLACES = {"decode_int_fwd": f"{_PALLAS}:732; {_PALLAS}:280",
             "decode_window_bwd": f"{_PALLAS}:571"}
 FWD = ("decode_int_fwd", "decode_window_fwd")
 BWD = ("decode_int_bwd", "decode_window_bwd")
+ENC_KEY = "encoder_conv"   # the encoder conv's launches in a phase's counts
 KERNEL_TOL = 1e-4          # forward: max abs error
 BWD_TOL = 1e-4             # backward: max abs error / largest magnitude
 MARGIN = 1e-5              # relu pre-activation margin (phase 3b)
@@ -395,6 +409,24 @@ STRIPE_STEP_SPACES = (2, 5)        # phase 9c: the emulated sharded step
 STRIPE_WIDTH = 253                 # phase 9c: a width no space divides
 GLOO_STEPS = 2             # phase 9d
 HOST_WAIT_MS: dict = {}    # phases 5b and 5d: the host's wait per step
+
+
+def reset_launches() -> None:
+    """Sets the launch counts to 0: the decoder wrappers' and the encoder
+    conv's."""
+    K.reset_launches()
+    EC.reset_launches()
+
+
+def launch_counts() -> dict:
+    """The launches since ``reset_launches``: the decoder's by wrapper key,
+    and the encoder conv's under ENC_KEY."""
+    return {**K.launches, ENC_KEY: EC.launches}
+
+
+def decoder_ran(counts: dict) -> bool:
+    """Whether any decoder kernel was launched in ``counts``."""
+    return any(counts[k] for k in K.launches)
 
 
 def phase(label: str, t_start: float, **fields) -> None:
@@ -1105,10 +1137,13 @@ def keep_samples_of(testset: str) -> None:
 
 def eval_slice(t) -> tuple:
     """Phase 4: the flagship benchmark evaluation on the exact-shape route;
-    returns its launches and its metrics. The samples it reads through the
-    CLI's dataset path are kept for phases 6a and 11b."""
+    returns its launches and its metrics. Every request runs RDN-B and the
+    stacked LR conv on the encoder conv (ENC_RDN_LAUNCHES launches). The
+    samples it reads through the CLI's dataset path are kept for phases 6a
+    and 11b."""
     spans = {name: [] for name in FWD}
-    K.reset_launches()
+    kept = set(EVAL_SAMPLES)
+    reset_launches()
     with contextlib.ExitStack() as stack:
         stack.enter_context(patched(pipeline, "eval_batches",
                                     recording_samples))
@@ -1118,16 +1153,22 @@ def eval_slice(t) -> tuple:
                                    "cuda", "--eval_buckets", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"benchmark run: {counts}")
+    requests = sum(len(batch) for key, items in EVAL_SAMPLES.items()
+                   if key not in kept for _, batch in items)
+    if not requests or counts[ENC_KEY] != ENC_RDN_LAUNCHES * requests:
+        raise AssertionError(f"encoder conv launches {counts[ENC_KEY]} over "
+                             f"{requests} requests, {ENC_RDN_LAUNCHES} each "
+                             f"expected")
     deltas = hold_metrics(results, ORACLE)
     worst = max(deltas, key=deltas.get)
     tpu_d = max_delta(results, tpu_log_metrics("flagship"))
     phase("slice_eval", t, wall_seconds=round(wall, 3), launches=counts,
-          decoder_call_seconds={n: span_seconds(v)
+          requests=requests, decoder_call_seconds={n: span_seconds(v)
                                 for n, v in spans.items()},
           metrics=len(deltas), max_delta_vs_oracle=deltas[worst],
           max_delta_at=worst, max_delta_vs_tpu_v5e_log_info_only=tpu_d)
@@ -1224,12 +1265,12 @@ def train_parity(dev, t) -> dict:
     flat, _ = load_params_npz(WEIGHTS)
     state = loop.init_state(cfg, spe, device=dev, params=flat)
     step = loop.make_train_step(state)
-    K.reset_launches()
+    reset_launches()
     got = []
     for batch in batches:
         m = step(loop.to_device(batch, dev))
         got.append({k: float(v) for k, v in m.items()})
-    counts = dict(K.launches)
+    counts = launch_counts()
     rel = hold_steps(got, want, "flagship")
     if counts["decode_int_bwd"] != 3 * len(want):
         raise AssertionError(f"decode_int_bwd launches {counts}")
@@ -1350,11 +1391,11 @@ def train_slice(t, bf16: bool = False) -> dict:
     from CUDA events."""
     dtype = BF16 if bf16 else torch.float32
     extra = ["model.dtype=bfloat16"] if bf16 else []
-    K.reset_launches()
+    reset_launches()
     state, out, records, per, host_gaps = timed_train_cli(
         ["--max-steps", str(TRAIN_STEPS), "trainer.limit_val_images=2",
          *extra], "train_bf16" if bf16 else "train")
-    counts = dict(K.launches)
+    counts = launch_counts()
     n = TRAIN_STEPS
     if (counts[K.launch_key("decode_int_bwd", dtype)] != 3 * n
             or counts[K.launch_key("decode_int_fwd", dtype)] < 3 * n):
@@ -1399,7 +1440,7 @@ def train_fractional(t, bf16: bool = False) -> dict:
     kernels; every instance of the run's dtype launched once a step, none
     of the other."""
     dtype = BF16 if bf16 else torch.float32
-    K.reset_launches()
+    reset_launches()
     state, _, records = run_train_cli(
         ["--max-steps", str(FRACTIONAL_STEPS), "data.train_scales=[2,2.5]",
          "trainer.log_every_n_steps=1",
@@ -1407,10 +1448,10 @@ def train_fractional(t, bf16: bool = False) -> dict:
          *(["model.dtype=bfloat16"] if bf16 else [])],
         "fractional_bf16" if bf16 else "fractional")
     torch.cuda.synchronize()
-    counts = dict(K.launches)
+    counts = launch_counts()
     n = FRACTIONAL_STEPS
     mine = {K.launch_key(name, dtype) for name in K.KERNELS}
-    want = {key: n if key in mine else 0 for key in K.launches}
+    want = {key: n if key in mine else 0 for key in counts}
     if counts != want:
         raise AssertionError(f"launches over {n} steps: {counts}, "
                              f"expected {want}")
@@ -1436,7 +1477,7 @@ def eval_slice_bf16(t) -> dict:
     """Phase 4b: Set5 at {3.14, 4, 8} in bf16 through the benchmark CLI,
     against the JAX-CPU bf16 oracle."""
     spans = {name: [] for name in FWD}
-    K.reset_launches()
+    reset_launches()
     with contextlib.ExitStack() as stack:
         for name in FWD:
             stack.enter_context(patched(K, name, span_recorder(spans[name])))
@@ -1445,7 +1486,7 @@ def eval_slice_bf16(t) -> dict:
                                    "--eval_buckets", "0",
                                    "--testsets", "Set5"])
     torch.cuda.synchronize()
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[K.launch_key(name, BF16)] <= 0:
             raise AssertionError(f"{name} bf16 was never launched: {counts}")
@@ -1517,9 +1558,9 @@ def train_parity_bf16(dev, t) -> dict:
     want, xla = steps["fused_interpret"], steps["xla"]
     with open(BF16_WITNESS) as f:
         cpu = json.load(f)["steps"]
-    K.reset_launches()
+    reset_launches()
     got = bf16_steps(dev)
-    counts = dict(K.launches)
+    counts = launch_counts()
     rel, bounds = [], []
     for i, (g, w, c) in enumerate(zip(got, want, cpu)):
         r, b = {}, {}
@@ -1636,7 +1677,7 @@ def eval_family(t, family: str) -> dict:
     fp32, against its JAX-CPU oracle; no decoder kernel may run. The four
     sets' samples are phase 4's (``replaying_samples``): the same images
     and scales, decoded and downsampled once."""
-    K.reset_launches()
+    reset_launches()
     args = (["--bicubic_test"] if family == "bicubic"
             else ["--ckpt_path", FAMILY_WEIGHTS.format(family)])
     with patched(pipeline, "eval_batches", replaying_samples):
@@ -1644,8 +1685,8 @@ def eval_family(t, family: str) -> dict:
                                           "--eval_buckets", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = dict(K.launches)
-    if any(counts.values()):
+    counts = launch_counts()
+    if decoder_ran(counts):
         raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
     deltas = hold_metrics(results, FAMILY_ORACLE.format(family))
     worst = max(deltas, key=deltas.get)
@@ -1711,13 +1752,15 @@ def eval_diinn_edsr(dev, t) -> dict:
     """Phase 6b: DIINN with the EDSR-baseline encoder (mode 3, hidden
     4 x 256) on ``seeded_params`` weights, Set5 at x2 (``decode_int_fwd``)
     and x3.14 (``decode_window_fwd``, column chunks of eval_bsize),
-    against the JAX-CPU oracle's per-image summaries."""
+    against the JAX-CPU oracle's per-image summaries. Every request runs
+    EDSR-baseline and the stacked LR conv on the encoder conv
+    (ENC_EDSR_LAUNCHES launches)."""
     with open(EDSR_ORACLE) as f:
         want = json.load(f)["images"]
     task = loop.build_task(load_config(None, EDSR_OVERRIDES), device=dev)
     task.net.load_state_dict(state_dict_from_jax(
         seeded_params(task.net, SEED)), strict=True)
-    K.reset_launches()
+    reset_launches()
     got = {}
     with torch.inference_mode():
         for key, lr, size in edsr_eval_inputs():
@@ -1726,10 +1769,14 @@ def eval_diinn_edsr(dev, t) -> dict:
             got[key] = summarize(pred.cpu().numpy())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched: {counts}")
+    if counts[ENC_KEY] != ENC_EDSR_LAUNCHES * len(got):
+        raise AssertionError(f"encoder conv launches {counts[ENC_KEY]} over "
+                             f"{len(got)} requests, {ENC_EDSR_LAUNCHES} each "
+                             f"expected")
     if set(got) != set(want):
         raise AssertionError(f"images {sorted(got)} vs {sorted(want)}")
     rel = {k: hold_summary(got[k], want[k], f"diinn+edsr {k}")
@@ -1763,13 +1810,13 @@ def init_q_step(dev, t) -> dict:
     state = loop.init_state(cfg, 1000, device=dev, params=flat)
     batch = loop.to_device(init_q_batch(), dev)
     (lr, hr), = batch.values()
-    K.reset_launches()
+    reset_launches()
     with torch.no_grad():
         pred = state.task.net(normalize(lr), (hr.shape[1], hr.shape[2]))
     out = summarize(pred.cpu().numpy())
     got = {k: float(v) for k, v in loop.make_train_step(state)(batch).items()}
-    counts = dict(K.launches)
-    if any(counts.values()):
+    counts = launch_counts()
+    if decoder_ran(counts):
         raise AssertionError(f"init_q: a decoder kernel ran: {counts}")
     rel = hold_steps([got], [want["step"]], "init_q")
     phase("slice_init_q", t, step=got, oracle=want["step"], relative=rel[0],
@@ -1789,7 +1836,7 @@ def train_families(dev, t) -> dict:
     next batch."""
     with open(FAMILIES_TRAIN_ORACLE) as f:
         oracle = json.load(f)
-    K.reset_launches()
+    reset_launches()
     out = {}
     for fam in FAMILIES:
         cfg = load_config(None, [f"model.arch={fam}"])
@@ -1823,8 +1870,8 @@ def train_families(dev, t) -> dict:
                     "step_ms_all": per["step"]}
         del state
         torch.cuda.empty_cache()
-    counts = dict(K.launches)
-    if any(counts.values()):
+    counts = launch_counts()
+    if decoder_ran(counts):
         raise AssertionError(f"LIIF/MetaSR: a decoder kernel ran: {counts}")
     phase("slice_train_families", t, launches=counts, **out)
     return counts
@@ -1853,7 +1900,9 @@ def host_timer(seconds: list):
 
 
 def only_window_launches(counts: dict, n: int, what: str) -> None:
-    """``decode_window_fwd`` (fp32) launched ``n`` times, nothing else."""
+    """``decode_window_fwd`` (fp32) launched ``n`` times, no other
+    decoder kernel."""
+    counts = {k: counts[k] for k in K.launches}
     want = {k: n if k == "decode_window_fwd" else 0 for k in counts}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
@@ -1870,11 +1919,11 @@ def demo_updown(t) -> dict:
         want = json.load(f)["outputs"]
     out_dir = WORK / "demo_updown"
     shutil.rmtree(out_dir, ignore_errors=True)
-    K.reset_launches()
+    reset_launches()
     written, lines = captured(demo.main, DEMO_UPDOWN + [
         "--out_dir", str(out_dir), "--device", "cuda"])
     torch.cuda.synchronize()
-    counts = dict(K.launches)
+    counts = launch_counts()
     bands = [int(m.group(1)) for m in
              (re.search(r"band_rows=(\d+)", ln) for ln in lines) if m]
     if len(bands) != len(want):
@@ -1916,7 +1965,7 @@ def demo_sr_full(dev, t) -> dict:
         out_dir = WORK / f"demo_sr_{tag}"
         shutil.rmtree(out_dir, ignore_errors=True)
         spans, save_s = [], []
-        K.reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1926,7 +1975,7 @@ def demo_sr_full(dev, t) -> dict:
                 "--out_dir", str(out_dir), "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[f"demo_sr_{tag}"] = dict(K.launches)
+        counts[f"demo_sr_{tag}"] = launch_counts()
         only_window_launches(K.launches, n, f"demo sr {tag}")
         streamed = [ln for ln in lines if ln.startswith("[streaming")]
         if streamed != ([line] if line else []):
@@ -1942,7 +1991,7 @@ def demo_sr_full(dev, t) -> dict:
     args = argparse.Namespace(model_name="default_model", ckpt_path=WEIGHTS)
     task = demo._build(args, [], dev)
     lr = torch.from_numpy(demo._load_image(DEMO_IMAGE)).to(dev)
-    K.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     a, b = events()
@@ -1961,7 +2010,7 @@ def demo_sr_full(dev, t) -> dict:
         for _ in range(X20_BANDS):
             band.cpu()
         d2h_bands = time.perf_counter() - t0
-    counts["demo_sr_one_window"] = dict(K.launches)
+    counts["demo_sr_one_window"] = launch_counts()
     only_window_launches(K.launches, 1, "one window")
     runs["one_window"] = {
         "device_seconds": a.elapsed_time(b) / 1e3,
@@ -2001,11 +2050,11 @@ def runtime_table(t) -> dict:
                              if v != before[k]})
             return out
         return call
-    K.reset_launches()
+    reset_launches()
     with patched(runtime_bench, "synced_time", counting):
         results = runtime_bench.main(["--iters", str(RUNTIME_ITERS),
                                       "--device", "cuda"])
-    counts = dict(K.launches)
+    counts = launch_counts()
     by_key = dict(zip(results, per_call))
     for key, got in by_key.items():
         want = ({"decode_int_fwd": 2 + RUNTIME_ITERS}
@@ -2071,7 +2120,7 @@ def train_resume(dev, t) -> dict:
                 return fn(state)
             return call
         return wrap
-    K.reset_launches()
+    reset_launches()
     states, secs = {}, {}
     with cudnn_deterministic():
         for tag, extra in (
@@ -2090,7 +2139,7 @@ def train_resume(dev, t) -> dict:
             if tag == "resumed":
                 steps = state.step
             del state
-    counts = dict(K.launches)
+    counts = launch_counts()
     if not (steps == 2 * spe and len(lrs["part"]) == len(lrs["resumed"])
             == spe and lrs["resumed"][0] == 0.5 * lrs["part"][0]
             and lrs["straight_a"][spe] == lrs["resumed"][0]):
@@ -2208,14 +2257,14 @@ def train_profile(t) -> dict:
     a step."""
     prof_dir = WORK / "profile"
     shutil.rmtree(prof_dir, ignore_errors=True)
-    K.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     run_train_cli(["--max-steps", "8", f"trainer.profile_dir={prof_dir}",
                    "trainer.profile_steps=3",
                    "trainer.check_val_every_n_epoch=1000"], "train_profile")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(K.launches)
+    counts = launch_counts()
     (trace,) = prof_dir.glob("*.pt.trace.json")
     events_ = json.loads(trace.read_text())["traceEvents"]
     steps = sorted(e["name"] for e in events_
@@ -2244,7 +2293,7 @@ def debug_nans(dev, t) -> dict:
     cfg = load_config(None, [])
     batches, spe = first_batches(cfg, 3)
     flat, _ = load_params_npz(WEIGHTS)
-    K.reset_launches()
+    reset_launches()
     losses, secs = {}, {}
     with cudnn_deterministic():
         for tag, on in (("off", False), ("on", True)):
@@ -2268,7 +2317,7 @@ def debug_nans(dev, t) -> dict:
         else:
             raise AssertionError("a NaN decoder weight did not raise under "
                                  "debug_nans")
-    counts = dict(K.launches)
+    counts = launch_counts()
     phase("debug_nans", t, losses=losses, raised=raised,
           host_seconds_two_steps=secs, launches=counts)
     del state, step
@@ -2306,7 +2355,7 @@ def native_loader_phase(t) -> dict:
     jpg_out = WORK / "demo_jpeg"
     demo_args = ["sr", "--lr_path", JPEG, "--output_size", "512", "512",
                  "--ckpt_path", WEIGHTS, "--out_dir", str(jpg_out)]
-    K.reset_launches()
+    reset_launches()
     if ok:
         errs = {}
         for p in (DEMO_IMAGE, "data/DIV2K/DIV2K_train_HR/0001.png"):
@@ -2370,7 +2419,7 @@ def native_loader_phase(t) -> dict:
             out["jpeg_demo"] = f"refused: {str(e)[:200]}"
         else:
             raise AssertionError("the demo read a JPEG without the loader")
-    counts = dict(K.launches)
+    counts = launch_counts()
     phase("native_loader", t, host_wait_ms_per_step=waits, launches=counts,
           **out)
     return counts
@@ -2393,7 +2442,7 @@ def rank1_nccl(t) -> dict:
     import torch.distributed as dist
     base = ["--max-steps", str(RANK1_STEPS), "trainer.limit_val_images=1",
             "trainer.log_every_n_steps=1"]
-    K.reset_launches()
+    reset_launches()
     runs = {}
     with cudnn_deterministic():
         for tag in ("plain", "nccl"):
@@ -2422,7 +2471,7 @@ def rank1_nccl(t) -> dict:
                            state.task.net.state_dict().items()},
                 "step_ms": float(np.mean(per["step"][1:]))}
             del state
-    counts = dict(K.launches)
+    counts = launch_counts()
     a, b = runs["plain"], runs["nccl"]
     if len(a["losses"]) != RANK1_STEPS or a["losses"] != b["losses"]:
         raise AssertionError(f"1-rank NCCL losses {b['losses']} != plain "
@@ -2519,7 +2568,7 @@ def stripes(dev, peaks, t) -> dict:
     hr = read_png(DEMO_IMAGE).astype(np.float32)[None] / 255.0
     lr_size = resize_by_scale_size(hr.shape[1:3], 3.14)
     x = normalize(torch.from_numpy(resize_np(hr[0], lr_size))[None].to(dev))
-    K.reset_launches()
+    reset_launches()
     calls, inputs = [], {}
     eval_out = {}
     with patched(K, "decode_window_fwd",
@@ -2543,7 +2592,7 @@ def stripes(dev, peaks, t) -> dict:
                 eval_out[f"{size[0]}x{size[1]}/{n}"] = {
                     "stripe_w": width, "overhang": n * width - size[1]}
     torch.cuda.synchronize()
-    eval_counts = dict(K.launches)
+    eval_counts = launch_counts()
     eval_table = stripe_table(calls, inputs, peaks, feat.shape)
     want_fwd = 2 * (1 + sum(STRIPE_SPACES))
     if eval_counts["decode_window_fwd"] != want_fwd:
@@ -2561,7 +2610,7 @@ def stripes(dev, peaks, t) -> dict:
     want = [p.grad.detach().clone() for p in params]
     want_norm = float(torch.stack([g.square().sum() for g in want]).sum()
                       .sqrt())
-    K.reset_launches()
+    reset_launches()
     loss = float(loss.detach())
     train_out = {}
     calls, inputs = [], {}
@@ -2591,7 +2640,7 @@ def stripes(dev, peaks, t) -> dict:
                                      f"{rel}")
             train_out[n] = {"loss": total, "grad_norm": norm, **rel}
     torch.cuda.synchronize()
-    train_counts = dict(K.launches)
+    train_counts = launch_counts()
     n_calls = 3 * sum(STRIPE_STEP_SPACES)
     if (train_counts["decode_window_fwd"] != n_calls
             or train_counts["decode_window_bwd"] != n_calls):
@@ -2619,13 +2668,13 @@ def gloo_shared_card(t) -> dict:
     that fails is named with its error, and fails the phase."""
     base = ["--max-steps", str(GLOO_STEPS), "trainer.check_val_every_n_epoch"
             "=1000", "data.num_workers=2"]
-    K.reset_launches()
+    reset_launches()
     state, *_ = run_train_cli(base, "gloo_one_rank")
     want = {k: v.detach().cpu().numpy() for k, v in
             state.task.net.state_dict().items()}
     del state
     torch.cuda.empty_cache()
-    counts = dict(K.launches)
+    counts = launch_counts()
     out = {}
     with launch.RankPool(2, device_type="cuda", backend="gloo",
                          share_device=True, threads=4, timeout=300) as pool:
@@ -2661,7 +2710,7 @@ def gloo_rank_train(args: list, out_dir: str) -> dict:
     step; its kernel launches, mean step ms (steps 2-N) and (rank 0) its
     parameters."""
     import torch.distributed as dist
-    K.reset_launches()
+    reset_launches()
     spans = []
 
     def timed(make):
@@ -2682,7 +2731,7 @@ def gloo_rank_train(args: list, out_dir: str) -> dict:
                                 f"trainer.ckpt_dir={out_dir}",
                                 f"trainer.log_dir={out_dir}"])
     torch.cuda.synchronize()
-    res = {"launches": dict(K.launches),
+    res = {"launches": launch_counts(),
            "step_ms": float(np.mean([a.elapsed_time(b)
                                      for a, b in spans[1:]]))}
     if dist.get_rank() == 0:
@@ -2742,8 +2791,9 @@ def bucketed_cli(args: list) -> tuple:
 
 
 def replay_launches(ev, counts: dict) -> dict:
-    """Each program's launches a run, checked against ``counts``: one
-    eager warm-up and every replay of every program, nothing else."""
+    """Each program's decoder launches a run, checked against ``counts``:
+    one eager warm-up and every replay of every program, nothing else."""
+    counts = {k: counts[k] for k in K.launches}
     want = {k: 0 for k in counts}
     per_program = {}
     for key, prog in ev._programs.items():
@@ -2765,10 +2815,10 @@ def eval_bucketed(t, exact: dict) -> tuple:
     programs, both forward kernels launched and counted per replay.
     Returns the evaluator (phase 10d replays its graphs), the launches
     and the metrics."""
-    K.reset_launches()
+    reset_launches()
     results, ev, wall, split, peak = bucketed_cli(
         ["--ckpt_path", WEIGHTS, "--device", "cuda"])
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
@@ -2804,11 +2854,11 @@ def eval_bucketed_bf16(t) -> dict:
     4b's bound (twice the gap between JAX's XLA and fused exact routes, no
     tighter than phase 4's); the gap to JAX's CLI route is reported. bf16
     instances only."""
-    K.reset_launches()
+    reset_launches()
     results, ev, wall, split, peak = bucketed_cli(
         ["model.dtype=bfloat16", "--ckpt_path", WEIGHTS, "--device", "cuda",
          "--testsets", "Set5"])
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[K.launch_key(name, BF16)] <= 0:
             raise AssertionError(f"{name} bf16 was never launched: {counts}")
@@ -2845,12 +2895,12 @@ def eval_bucketed_family(t, family: str) -> dict:
     """Phase 10c: LIIF or MetaSR on Set5 at {3.14, 4, 8}, bucketed, fp32:
     the 9 metrics against the Set5 entries of the family's exact-shape
     JAX-CPU oracle at phase 6a's bounds; no decoder kernel runs."""
-    K.reset_launches()
+    reset_launches()
     results, ev, wall, split, _ = bucketed_cli(
         ["--ckpt_path", FAMILY_WEIGHTS.format(family), "--device", "cuda",
          "--testsets", "Set5"])
-    counts = dict(K.launches)
-    if any(counts.values()):
+    counts = launch_counts()
+    if decoder_ran(counts):
         raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
     deltas = hold_metrics(results, FAMILY_ORACLE.format(family), ("Set5",))
     worst = max(deltas, key=deltas.get)
@@ -2894,7 +2944,7 @@ def bucketed_replay_check(t, ev) -> dict:
     With each replay's device ms (CUDA events) and each eager run's
     decoder calls' device ms, and from them the decoder's share of phase
     10a."""
-    K.reset_launches()
+    reset_launches()
     out, decoder_s = {}, 0.0
     replays = {key: prog.replays for key, prog in ev._programs.items()}
     for key, n in replays.items():
@@ -2936,8 +2986,8 @@ def bucketed_replay_check(t, ev) -> dict:
     phase("bucketed_replay_vs_eager", t, bit_equal=True,
           launches_counted_on_device=True, programs=out,
           decoder_seconds_in_10a_from_eager=decoder_s,
-          launches=dict(K.launches))
-    return dict(K.launches)
+          launches=launch_counts())
+    return launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -3015,7 +3065,7 @@ def train_paired(dev, t) -> dict:
     state = loop.init_state(cfg, n * 2 // cfg.data.batch_size, device=dev)
     step = loop.make_train_step(state)
     spans, losses = [], []
-    K.reset_launches()
+    reset_launches()
     for batch in cached:
         a, b = events()
         a.record()
@@ -3024,7 +3074,7 @@ def train_paired(dev, t) -> dict:
         spans.append((a, b))
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
-    counts = dict(K.launches)
+    counts = launch_counts()
     n_steps = len(cached)
     if not (counts["decode_int_fwd"] == counts["decode_int_bwd"]
             == 3 * n_steps) or any(v for k, v in counts.items()
@@ -3077,12 +3127,12 @@ def reexport(t, bucketed_set5: dict) -> dict:
                 raise AssertionError(f"re-export {k} differs")
         n_arrays = len(want.files) - 1
     del net
-    K.reset_launches()
+    reset_launches()
     with patched(pipeline, "eval_batches", replaying_samples):
         results, ev, wall, _, _ = bucketed_cli(
             ["--ckpt_path", str(out), "--device", "cuda",
              "--testsets", "Set5"])
-    counts = dict(K.launches)
+    counts = launch_counts()
     for name in FWD:
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the "
@@ -3110,7 +3160,7 @@ def rdn_head(dev, t) -> dict:
     x = np.random.default_rng(SEED).uniform(
         0.0, 1.0, (HEAD_BATCH, HEAD_LR, HEAD_LR, 3)).astype(np.float32)
     out = {}
-    K.reset_launches()
+    reset_launches()
     for r in HEAD_SCALES:
         net = RDN(upsampling=r)
         net.load_state_dict(state_dict_from_jax(seeded_params(net, SEED + r)),
@@ -3128,12 +3178,95 @@ def rdn_head(dev, t) -> dict:
                                  f"relative gap {gap} (> {HEAD_TOL})")
         out[f"x{r}"] = {"shape": list(shape), "max_rel_err": gap, "ms": ms}
         del net, xd
-    counts = dict(K.launches)
-    if any(counts.values()):
-        raise AssertionError(f"RDN head: a decoder kernel ran: {counts}")
+    counts = launch_counts()
+    if decoder_ran(counts) or counts[ENC_KEY]:
+        raise AssertionError(f"RDN head: a decoder kernel or the encoder "
+                             f"conv ran: {counts}")
     torch.cuda.empty_cache()
     phase("rdn_head", t, **out, launches=counts)
     return counts
+
+
+# phase 3c: the encoder conv kernel at every RDN-B shape of a 192x256
+# request (input channels, output channels, kernel size, convs a request:
+# sfe1, sfe2, conv c of the 16 blocks, their local fusions, gff1, gff2,
+# and the decoder's stacked LR conv)
+ENC_HW = (192, 256)
+ENC_SHAPES = ([("sfe1", 3, 64, 3, 1), ("sfe2", 64, 64, 3, 1)]
+              + [(f"rdb.conv{c}", 64 + 64 * c, 64, 3, 16) for c in range(8)]
+              + [("rdb.lff", 576, 64, 1, 16), ("gff1", 1024, 64, 1, 1),
+                 ("gff2", 64, 64, 3, 1), ("lr_conv", 64, 1024, 3, 1)])
+ENC_TOL = 4e-6      # of the largest magnitude: the card tests' bound
+# launches a request: RDN-B's convs and the LR conv; EDSR-baseline's head,
+# 16 blocks of two convs, body tail, and the LR conv
+ENC_RDN_LAUNCHES = sum(r[4] for r in ENC_SHAPES)
+ENC_EDSR_LAUNCHES = 1 + 16 * 2 + 1 + 1
+ENC_SOURCE = "tpu_diinn_torch/csrc/encoder_conv.cu"
+ENC_KERNEL = "encoder_conv::conv_implicit_gemm_3xtf32_kernel"
+
+
+def encoder_conv_phase(dev, peaks, t) -> dict:
+    """Phase 3c: ``kernels/encoder_conv``'s kernel at each RDN-B shape of
+    a 192x256 request (seeded slab and weights, bias, ReLU): its output
+    within ENC_TOL of cuDNN fp32's largest magnitude (TF32 off), its ms
+    (CUDA events, 10 calls after one), its 3xTF32 bound, the plain
+    version's ms (``conv_ref``: cuDNN on the slab's NCHW view and the
+    epilogue) and cuDNN fp32's own on a contiguous NCHW input
+    (``library_ms``, what the NCHW path runs); then the sums over a
+    request, weighted by each shape's convs a request."""
+    gen = torch.Generator().manual_seed(SEED)
+    h, w = ENC_HW
+    rows, total = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                       "library_ms": 0.0, "flop": 0.0}
+    for name, cin, cout, k, count in ENC_SHAPES:
+        x = torch.rand((1, h, w, cin), generator=gen).to(dev)
+        wt = ((torch.rand((cout, cin, k, k), generator=gen) * 2 - 1)
+              / math.sqrt(cin * k * k)).to(dev)
+        b = (torch.rand((cout,), generator=gen) * 2 - 1).to(dev)
+        slabs = EC.weight_slabs(wt)
+        out = torch.empty((1, h, w, cout), device=dev)
+        plain = torch.empty_like(out)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        before = EC.launches
+        EC.conv(x, wt, b, out, relu=True, slabs=slabs)
+        torch.cuda.synchronize()
+        if EC.launches != before + 1:
+            raise AssertionError(f"encoder conv {name}: no launch counted")
+        want = torch.relu(torch.nn.functional.conv2d(
+            xn, wt, b, padding=(k - 1) // 2)).permute(0, 2, 3, 1)
+        err = float((out - want).abs().max() / want.abs().max())
+        if not (math.isfinite(err) and err <= ENC_TOL):
+            raise AssertionError(f"encoder conv {name}: relative error "
+                                 f"{err} > {ENC_TOL}")
+        flop = 2.0 * h * w * cin * cout * k * k
+        nbytes = (x.numel() + out.numel() + slabs.numel() + cout) * 4
+        ms = time_ms(lambda: EC.conv(x, wt, b, out, relu=True, slabs=slabs),
+                     10)
+        plain_ms = time_ms(lambda: EC.conv_ref(x, wt, b, plain, relu=True),
+                           10)
+        lib_ms = time_ms(lambda: torch.nn.functional.conv2d(
+            xn, wt, b, padding=(k - 1) // 2), 10)
+        bnd = bound(flop, nbytes, peaks)
+        row = {"name": name, "shape": [1, h, w, cin, cout, k],
+               "convs_a_request": count, "max_rel_err": err,
+               "ms": round(ms, 4), "bound_ms": round(bnd["bound_ms"], 4),
+               "bound_by": bnd["bound_by"], "plain_ms": round(plain_ms, 4),
+               "library_ms": round(lib_ms, 4),
+               "tflops_fp32_equivalent": round(flop / ms / 1e9, 2),
+               "share_of_3xtf32_bound": round(bnd["bound_ms"] / ms, 4)}
+        rows.append(row)
+        total["ms"] += count * ms
+        total["bound_ms"] += count * bnd["bound_ms"]
+        total["plain_ms"] += count * plain_ms
+        total["library_ms"] += count * lib_ms
+        total["flop"] += count * flop
+        del x, wt, b, slabs, out, plain, xn, want
+    total = {k: round(v, 3) for k, v in total.items()}
+    total["tflops_fp32_equivalent"] = round(total["flop"] / total["ms"]
+                                            / 1e9, 2)
+    torch.cuda.empty_cache()
+    phase("encoder_conv", t, rows=rows, request=total)
+    return {"rows": rows, "request": total}
 
 
 def main(argv: list) -> int:
@@ -3186,7 +3319,8 @@ def main(argv: list) -> int:
             # backward's own bf16 kernels) HGMMA
             need = {"decoder_fused": (("decode_fwd", ("HGMMA",)),),
                     "decoder_bwd": (("decode_bwd_chain", ("HMMA", "HGMMA")),
-                                    ("wgrad", ("HMMA", "HGMMA")))}
+                                    ("wgrad", ("HMMA", "HGMMA"))),
+                    "encoder_conv": (("conv_implicit_gemm", ("HGMMA",)),)}
             for kern, ops in need[name]:
                 tc = [sum(v[op] for op in ops) for k, v in sass.items()
                       if k.startswith(kern)]
@@ -3196,7 +3330,7 @@ def main(argv: list) -> int:
                 hg = [v["HGMMA"] for k, v in sass.items()
                       if k.startswith(kern) and (k.endswith("Bf16>")
                                                  or "_bf16_kernel" in k)]
-                if not hg or min(hg) == 0:
+                if name != "encoder_conv" and (not hg or min(hg) == 0):
                     raise AssertionError(f"{kern}: a bf16 instance without "
                                          f"HGMMA: {sass}")
         phase("build", t, library=name,
@@ -3211,6 +3345,7 @@ def main(argv: list) -> int:
     t = time.perf_counter()
     train_kernels(dev, peaks, peak_bf16, t, checks)
     torch.cuda.empty_cache()
+    enc = encoder_conv_phase(dev, peaks, time.perf_counter())
 
     # 4) and 5) the main paths, each with the launch counts set to 0 just
     # before it and read just after
@@ -3308,6 +3443,22 @@ def main(argv: list) -> int:
         if name in FWD:
             entry["eval_shapes"] = [{k: r[k] for k in keys} for r in rs]
         kernels.append(entry)
+    req = enc["request"]
+    kernels.append({
+        "name": ENC_KEY, "route": "cuda", "source": ENC_SOURCE,
+        "kernel": ENC_KERNEL,
+        "replaces": "an XLA conv (no Pallas kernel); cuDNN fp32 on the card",
+        "dtype": "float32",
+        "launches": sum(c[ENC_KEY] for c in by_path.values()),
+        "launches_by_path": {p: c[ENC_KEY] for p, c in by_path.items()},
+        "max_rel_err": max(r["max_rel_err"] for r in enc["rows"]),
+        "ms": req["ms"], "plain_ms": req["plain_ms"],
+        "bound_ms": req["bound_ms"],
+        "bound_by": "/".join(sorted({r["bound_by"] for r in enc["rows"]})),
+        "library_ms": req["library_ms"],
+        "shape": "every RDN-B conv and the LR conv of a 192x256 request",
+        "achieved_tflops": req["tflops_fp32_equivalent"],
+        "shapes": enc["rows"]})
     phase("total", t_total)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

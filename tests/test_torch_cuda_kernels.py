@@ -1,4 +1,5 @@
-"""The CUDA decoder kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+decoder's, and at the end the fp32 inference encoder's conv.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 a card and the CUDA toolkit (no JAX needed there):
@@ -22,6 +23,7 @@ import torch
 from chip_smoke import relu_margin
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.kernels import decoder_fused as K
+from tpu_diinn_torch.kernels import encoder_conv as EC
 from tpu_diinn_torch.nn.diinn import DIINN
 
 pytestmark = pytest.mark.cuda
@@ -665,3 +667,153 @@ def test_spans_reach_a_profiler_that_records_the_host_and_not_cuda_alone():
                 n for n, _, _ in spans.program_spans(t)}
     assert not {n for n, _, _ in t.device} & names
     assert spans.idle_by_layer(t) is not None
+
+
+# The fp32 inference encoder's implicit-GEMM conv (kernels/encoder_conv)
+# against cuDNN's fp32 conv with TF32 off, at every (Cin, Cout, k) of
+# RDN-B, EDSR-baseline and the stacked LR conv. Tolerance: 4e-6 of the
+# reference's largest magnitude. Three TF32 products a multiply-add
+# (a_lo b_hi + a_hi b_lo + a_hi b_hi) leave about 2^-21 of relative error
+# each, and a sum runs over K <= 4,608 terms (RDN-B's conv7: 512 channels
+# x 9 taps); cuDNN's fp32 sums in another order.
+ENC_TOL = 4e-6
+ENC_SHAPES = ([(3, 64, 3)] + [(64 * c, 64, 3) for c in range(1, 9)]
+              + [(576, 64, 1), (1024, 64, 1), (64, 1024, 3)])
+
+
+@pytest.mark.parametrize("hw", [(192, 256), (47, 53)])
+@pytest.mark.parametrize("cin,cout,k", ENC_SHAPES)
+def test_encoder_conv_matches_cudnn_fp32(cin, cout, k, hw, monkeypatch):
+    """Batch 1 into a dense output; batch 2 with ReLU and a residual, the
+    input a channel prefix of a wider slab and the output a channel slice
+    of another, whose other channels stay untouched; and for a 1x1 conv,
+    batch 2 in place, as a residual dense block's local fusion runs it:
+    the output and the residual are the input slab's first Cout channels,
+    and a second output gets the same values."""
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(cin * 7 + cout + k + hw[0])
+    for batch, relu, res, wide in ((1, False, False, False),
+                                   (2, True, True, True)):
+        xs = torch.rand((batch, *hw, cin + 8 * wide), generator=gen).to(dev)
+        x = xs[..., :cin]
+        wt = ((torch.rand((cout, cin, k, k), generator=gen) * 2 - 1)
+              / np.sqrt(cin * k * k)).to(dev)
+        b = (torch.rand((cout,), generator=gen) * 2 - 1).to(dev)
+        r = (torch.randn((batch, *hw, cout), generator=gen).to(dev)
+             if res else None)
+        slab = torch.full((batch, *hw, cout + 16 * wide), float("nan"),
+                          device=dev)
+        out = slab[..., 8:8 + cout] if wide else slab
+        before = EC.launches
+        EC.conv(x, wt, b, out, relu=relu, residual=r,
+                slabs=EC.weight_slabs(wt))
+        torch.cuda.synchronize()
+        assert EC.launches == before + 1
+        want = torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), wt, b,
+            padding=(k - 1) // 2).permute(0, 2, 3, 1)
+        if relu:
+            want = torch.relu(want)
+        if res:
+            want = want + r
+        err = (out - want).abs().max().item()
+        assert err <= ENC_TOL * want.abs().max().item(), (batch, err)
+        if wide:
+            assert torch.isnan(slab[..., :8]).all()
+            assert torch.isnan(slab[..., 8 + cout:]).all()
+    if k == 1:
+        xs = torch.rand((2, *hw, cin), generator=gen).to(dev)
+        want = torch.nn.functional.conv2d(
+            xs.permute(0, 3, 1, 2), wt, b).permute(0, 2, 3, 1)
+        want = want + xs[..., :cout]
+        rest = xs[..., cout:].clone()
+        out2 = torch.full((2, *hw, cout + 16), float("nan"), device=dev)
+        EC.conv(xs, wt, b, xs[..., :cout], residual=xs[..., :cout],
+                out2=out2[..., 8:8 + cout], slabs=EC.weight_slabs(wt))
+        torch.cuda.synchronize()
+        for got in (xs[..., :cout], out2[..., 8:8 + cout]):
+            err = (got - want).abs().max().item()
+            assert err <= ENC_TOL * want.abs().max().item(), ("in place",
+                                                              err)
+        assert torch.equal(xs[..., cout:], rest)
+        assert torch.isnan(out2[..., :8]).all()
+        assert torch.isnan(out2[..., 8 + cout:]).all()
+
+
+def test_encoder_conv_refuses_what_the_kernel_does_not_take():
+    dev = _device()
+    x = torch.rand((1, 8, 8, 64), device=dev)
+    w = torch.rand((64, 64, 3, 3), device=dev)
+    b = torch.rand((64,), device=dev)
+    ws = EC.weight_slabs(w)
+    slab = torch.empty((1, 8, 8, 128), device=dev)
+    with pytest.raises(ValueError, match="kernel size"):
+        EC.conv(x, torch.rand((64, 64, 5, 5), device=dev), b,
+                slab[..., 64:], slabs=ws)
+    with pytest.raises(ValueError, match="float32"):
+        EC.conv(x.double(), w.double(), b, slab[..., 64:], slabs=ws)
+    with pytest.raises(ValueError, match="overlap"):
+        EC.conv(slab[..., :64], w, b, slab[..., 32:96], slabs=ws)
+    with pytest.raises(ValueError, match="out must be"):
+        EC.conv(x, w, b, slab[..., :32], slabs=ws)
+    with pytest.raises(ValueError, match="slabs must be"):
+        EC.conv(x, w, b, slab[..., 64:], slabs=None)
+
+
+@pytest.mark.parametrize("encoder,launches", [("rdn", 149),
+                                              ("edsr-baseline", 35)])
+def test_fp32_predict_on_the_slab_path_matches_cudnn(encoder, launches,
+                                                     monkeypatch):
+    """A DIINN fp32 request at 192x256 x3.14 (``SRTask.predict`` under
+    inference mode) runs every encoder conv and the stacked LR conv as the
+    implicit-GEMM kernel, 149 launches over RDN-B (148 convs and the LR
+    conv), 35 over EDSR-baseline; its output and the encoder's features
+    agree with the cuDNN path's (the slab path turned off) within 1e-6
+    absolute and ENC_TOL of the features' largest magnitude."""
+    from tpu_diinn_torch.config.config import load_config
+    from tpu_diinn_torch.train import loop
+    from tpu_diinn_torch.train.task import normalize
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    task = loop.build_task(load_config(None, [f"model.encoder={encoder}"]),
+                           device=dev)
+    x = torch.rand((1, 192, 256, 3),
+                   generator=torch.Generator().manual_seed(3)).to(dev)
+    size = (round(192 * 3.14), round(256 * 3.14))
+    with torch.inference_mode():
+        before = EC.launches
+        got = task.predict(x, size)
+        torch.cuda.synchronize()
+        assert EC.launches == before + launches
+        feat = task.net.encoder(normalize(x))
+        monkeypatch.setattr(EC, "engaged", lambda *a, **k: False)
+        want = task.predict(x, size)
+        want_feat = task.net.encoder(normalize(x))
+        torch.cuda.synchronize()
+    assert EC.launches == before + launches + launches - 1
+    assert (got - want).abs().max().item() <= 1e-6
+    gap = (feat - want_feat).abs().max().item()
+    assert gap <= ENC_TOL * want_feat.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_step_launches_no_encoder_conv(dtype):
+    """A fused training step (autograd on) keeps the cuDNN path in either
+    compute dtype: ``encoder_conv.launches`` does not move."""
+    from tpu_diinn_torch.config.config import load_config
+    from tpu_diinn_torch.train import loop
+    dev = _device()
+    cfg = load_config(None, ["model.encoder=rdn-tiny",
+                             "model.hidden_dims=[32,32,32]",
+                             f"model.dtype={dtype}"])
+    state = loop.init_state(cfg, 1000, device=dev)
+    step = loop.make_train_step(state)
+    rng = np.random.default_rng(0)
+    batch = {s: (rng.random((2, 12, 12, 3), dtype=np.float32),
+                 rng.random((2, 12 * s, 12 * s, 3), dtype=np.float32))
+             for s in (2, 3)}
+    before = EC.launches
+    step(loop.to_device(batch, dev))
+    torch.cuda.synchronize()
+    assert EC.launches == before

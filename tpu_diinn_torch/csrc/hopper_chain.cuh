@@ -202,6 +202,7 @@ void host_wgmma_bf16(float* d, int n, const uint32_t (&a)[4],
                      const uint16_t* b, bool accumulate);
 void host_mbar_init(uint64_t* bar, int count);
 void host_mbar_wait(uint64_t* bar, uint32_t parity);
+void host_mbar_arrive(uint64_t* bar);
 void host_bulk_load(void* dst, const void* src, uint32_t bytes,
                     uint64_t* bar);
 #endif
@@ -256,6 +257,67 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 #elif !defined(__CUDACC__)
   host_mbar_wait(bar, parity);
+#endif
+}
+
+// The primitives below keep branches out of the code around wgmma: a
+// branch there (as a C++ spin loop or `if (lane == 0)`) makes ptxas
+// serialize the wgmmas (its warning C7520). The conditions are predicates
+// inside the asm, the waits' loops inside their asm.
+
+// One arrival on `bar` where `pred` holds (its phase completes with the
+// count it was initialised with).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+#elif !defined(__CUDACC__)
+  if (pred) host_mbar_arrive(bar);
+#endif
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait_loop(uint64_t* bar,
+                                               uint32_t parity) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+#elif !defined(__CUDACC__)
+  host_mbar_wait(bar, parity);
+#endif
+}
+
+// Give this warpgroup's registers back (kDec) or take more (kInc), as
+// setmaxnreg: the producer warpgroup needs few, the consumers many.
+template <int kRegs>
+__device__ __forceinline__ void set_max_regs_dec() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+#endif
+}
+
+template <int kRegs>
+__device__ __forceinline__ void set_max_regs_inc() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+#endif
+}
+
+// The thread's warpgroup, known to the compiler to be the same across the
+// warp (a shuffle from lane 0), so that a branch on it does not diverge.
+__device__ __forceinline__ int warpgroup_uniform() {
+#if defined(__CUDA_ARCH__)
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+#else
+  return static_cast<int>(threadIdx.x) / 128;
 #endif
 }
 

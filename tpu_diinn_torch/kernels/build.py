@@ -38,6 +38,8 @@ SOURCES = {
                                            "hopper_chain.cuh")),
     "decoder_bwd": ("decoder_bwd.cu", ("decoder_bwd.cuh",
                                        "hopper_chain.cuh")),
+    "encoder_conv": ("encoder_conv.cu", ("encoder_conv.cuh",
+                                         "hopper_chain.cuh")),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -58,6 +58,7 @@ from torch import nn
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.fastmath import fast_sin
 from tpu_diinn_torch.kernels import decoder_fused as kern
+from tpu_diinn_torch.kernels import encoder_conv as ec
 from tpu_diinn_torch.nn.layers import Conv, Dense, unfold3x3
 from tpu_diinn_torch.parallel.sharding import stripe_columns
 from tpu_diinn_torch.train.profiling import span
@@ -167,13 +168,21 @@ class ImplicitDecoder(nn.Module):
         kq biases folded in: k = relu(q@Wkq + (z_i + bkq_i)). Mode 3 only.
         Returns a contiguous (B, H, W, L*hidden) tensor in the compute
         dtype (bf16: the conv and the bias add each round to bf16, as the
-        JAX package's)."""
+        JAX package's). In fp32 inference on the card
+        (``kernels/encoder_conv.engaged``) it is one launch of the encoder's
+        implicit-GEMM conv, the stacked weights and biases kept on the
+        decoder."""
         with span("lr_conv"):
             ws = [self.k0_conv.conv.weight]
             bs = [self.k0_conv.conv.bias]
             for i in range(1, self.n_layers):
                 ws.append(getattr(self, f"kx{i}").conv.weight)
                 bs.append(getattr(self, f"kq{i}").dense.bias)
+            if ec.engaged(feat, self.dtype):
+                w, b, slabs = ec.operands(self, ws, bs)
+                z = ec.new_slab(feat, w.shape[0])
+                ec.conv(feat, w, b, z, slabs=slabs)
+                return z
             if self.dtype == torch.float32:
                 y = F.conv2d(_nchw(feat), torch.cat(ws, dim=0),
                              torch.cat(bs), padding=1)

@@ -6,7 +6,11 @@ EDSR (conv head, residual body with a global residual) that returns the
 configuration. ``EDSR`` adds the mean shifts and the PixelShuffle tail, at
 a fixed integer scale. NHWC in and out; NCHW inside for ``conv2d``.
 ``EDSRBaseline(halo=...)`` passes the mesh axis to every conv, as the
-JAX ``halo_axis`` (``nn/layers.py``).
+JAX ``halo_axis`` (``nn/layers.py``). In fp32 inference (a CUDA input,
+autograd off, no halo, no valid-extent masking:
+``kernels/encoder_conv.engaged``) ``EDSRBaseline`` runs every conv as
+``kernels/encoder_conv``'s implicit-GEMM kernel on NHWC slabs, the
+residuals in its epilogue (``forward_slabs``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from tpu_diinn_torch.kernels import encoder_conv as ec
 from tpu_diinn_torch.nn.layers import Conv, MeanShift, ResBlock, Upsampler
 
 
@@ -53,7 +58,27 @@ class EDSRBaseline(nn.Module):
         return self.n_feats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if ec.engaged(x, self.head.dtype, self.head.halo):
+            return self.forward_slabs(x)
         return _run_body(self, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
+        """The body on NHWC slabs: (B, H, W, 3) -> a contiguous (B, H, W,
+        n_feats). Each resblock's second conv adds its input and writes
+        over it."""
+        y = ec.new_slab(x, self.n_feats)
+        ec.module_conv(self.head, x, y)
+        t = ec.new_slab(x, self.n_feats)
+        r = ec.new_slab(x, self.n_feats)
+        src = y
+        for i in range(self.n_resblocks):
+            blk = getattr(self, f"res{i}")
+            ec.module_conv(blk.conv0, src, t, relu=True)
+            ec.module_conv(blk.conv1, t, r, residual=src)
+            src = r
+        out = ec.new_slab(x, self.n_feats)
+        ec.module_conv(self.body_tail, src, out, residual=y)
+        return out
 
 
 class EDSR(nn.Module):

@@ -14,6 +14,16 @@ config "tiny"). NHWC in and out; NCHW inside for ``conv2d``. ``dtype`` is every 
 (``nn/layers.py``): with bfloat16 the features come out bf16. ``halo``
 (the JAX ``halo_axis``) reaches every conv: the encoder then runs on a
 slab of rows sharded over that mesh axis (``parallel/sharding.py``).
+
+fp32 inference without a head (a CUDA input, autograd off, no halo, no
+valid-extent masking: ``kernels/encoder_conv.engaged``) takes
+``forward_slabs``: every conv is ``kernels/encoder_conv``'s implicit-GEMM
+kernel on NHWC channel slabs. A block keeps one (B, H, W, G0 + C G) slab:
+conv c reads its channel prefix [0, G0 + c G) and writes the next G
+channels, and the local fusion writes the block's output over the slab's
+first G0 channels (its input, the residual) and into the (B, H, W, D G0)
+slab that the global fusion reads, so nothing is concatenated; the
+residuals are the kernel's epilogue. Everything else keeps the NCHW path.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_diinn_torch.kernels import encoder_conv as ec
 from tpu_diinn_torch.nn.layers import Conv
 
 RDN_CONFIGS = {
@@ -55,6 +66,20 @@ class RDB(nn.Module):
             out = torch.relu(getattr(self, f"conv{c}")(y))
             y = torch.cat([y, out], dim=1)
         return x + self.lff(y)
+
+    def forward_slab(self, s: torch.Tensor, out2: torch.Tensor) -> None:
+        """The block on slab ``s`` (B, H, W, G0 + C G) whose first G0
+        channels hold its input: the convs fill the rest, the local
+        fusion's output replaces the input and goes to ``out2`` too."""
+        for c in range(self.n_convs):
+            conv = getattr(self, f"conv{c}")
+            cin = conv.conv.in_channels
+            ec.module_conv(conv, s[..., :cin],
+                           s[..., cin:cin + conv.conv.out_channels],
+                           relu=True)
+        g0 = self.lff.conv.out_channels
+        ec.module_conv(self.lff, s, s[..., :g0], residual=s[..., :g0],
+                       out2=out2)
 
 
 class RDN(nn.Module):
@@ -100,6 +125,9 @@ class RDN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, n_colors) -> (B, H, W, G0), or with the head
         (B, H*r, W*r, n_colors)."""
+        if not self.upsampling and ec.engaged(x, self.sfe1.dtype,
+                                              self.sfe1.halo):
+            return self.forward_slabs(x)
         x = x.permute(0, 3, 1, 2)
         f1 = self.sfe1(x)
         y = self.sfe2(f1)
@@ -114,6 +142,25 @@ class RDN(nn.Module):
         if self.shuffles:
             y = getattr(self, f"up{len(self.shuffles)}")(y)
         return y.permute(0, 2, 3, 1)
+
+    def forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
+        """The headless forward on NHWC channel slabs (module docstring):
+        (B, H, W, n_colors) -> a contiguous (B, H, W, G0)."""
+        g0 = self.growth0
+        f1 = ec.new_slab(x, g0)
+        ec.module_conv(self.sfe1, x, f1)
+        rdb0 = self.rdb0
+        s = ec.new_slab(x, rdb0.lff.conv.in_channels)
+        ec.module_conv(self.sfe2, f1, s[..., :g0])
+        blocks = ec.new_slab(x, self.n_blocks * g0)
+        for i in range(self.n_blocks):
+            getattr(self, f"rdb{i}").forward_slab(
+                s, blocks[..., i * g0:(i + 1) * g0])
+        y = ec.new_slab(x, g0)
+        ec.module_conv(self.gff1, blocks, y)
+        out = ec.new_slab(x, g0)
+        ec.module_conv(self.gff2, y, out, residual=f1)
+        return out
 
 
 class RDNSmall(RDN):
