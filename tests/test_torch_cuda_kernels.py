@@ -817,3 +817,60 @@ def test_training_step_launches_no_encoder_conv(dtype):
     step(loop.to_device(batch, dev))
     torch.cuda.synchronize()
     assert EC.launches == before
+
+
+def test_liif_imnet_feat_on_the_conv_kernel_matches_plain(monkeypatch):
+    """LIIF's feature conv (``imnet_feat``, 64 -> 256, 3x3, no bias) at
+    192x256 in fp32 inference is one launch of the implicit-GEMM kernel,
+    its zero bias kept on the module, within ENC_TOL of the plain version
+    (``encoder_conv.conv_ref``) and of the module's own cuDNN conv."""
+    from tpu_diinn_torch.nn.liif import LIIF
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = LIIF(generator=torch.Generator().manual_seed(5)).to(dev)
+    feat = torch.randn((1, 192, 256, 64),
+                       generator=torch.Generator().manual_seed(6)).to(dev)
+    w = net.imnet_feat.conv.weight.detach()
+    with torch.inference_mode():
+        before = EC.launches
+        got = net.feat_conv(feat)
+        torch.cuda.synchronize()
+        assert EC.launches == before + 1
+        want = torch.empty_like(got)
+        EC.conv_ref(feat, w, torch.zeros(256, device=dev), want)
+        cudnn = net.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert got.shape == (1, 192, 256, 256)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= ENC_TOL * scale
+    assert (got - cudnn).abs().max().item() <= ENC_TOL * scale
+
+
+def test_liif_fp32_predict_launches_the_conv_for_imnet_feat(monkeypatch):
+    """A LIIF-RDN fp32 request at 192x256 x3.14 runs RDN-B's 148 convs and
+    ``imnet_feat`` on the kernel, 149 launches; its output agrees with the
+    cuDNN path's (the slab path off) within 1e-6 absolute; the decode
+    counters read the request's chunks and 4 x its queries."""
+    from tpu_diinn_torch.config.config import load_config
+    from tpu_diinn_torch.nn import liif
+    from tpu_diinn_torch.train import loop
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    task = loop.build_task(load_config(None, ["model.arch=liif"]),
+                           device=dev)
+    x = torch.rand((1, 192, 256, 3),
+                   generator=torch.Generator().manual_seed(3)).to(dev)
+    size = (round(192 * 3.14), round(256 * 3.14))
+    with torch.inference_mode():
+        before = EC.launches
+        liif.reset_counters()
+        got = task.predict(x, size)
+        torch.cuda.synchronize()
+        assert EC.launches == before + 149
+        chunk = task.eval_bsize // size[0]
+        assert liif.chunks == -(-size[1] // chunk)
+        assert liif.corner_queries == 4 * size[0] * size[1]
+        monkeypatch.setattr(EC, "engaged", lambda *a, **k: False)
+        want = task.predict(x, size)
+        torch.cuda.synchronize()
+    assert EC.launches == before + 149
+    assert (got - want).abs().max().item() <= 1e-6

@@ -12,11 +12,12 @@
   second output (a residual dense block's local fusion). Skips without
   g++.
 - The dispatch: the slab path (``engaged``) is taken by RDN without a
-  head, EDSR-baseline and the stacked LR conv for a CUDA input in fp32
-  inference, and not for a CPU input, a bf16 module, autograd on, a halo,
-  valid-extent masking or RDN's head. A CPU tensor that says it is on the
-  card (``_CardTensor``) drives the decision here; the convs then run the
-  plain version.
+  head, EDSR-baseline, the stacked LR conv and LIIF's feature conv
+  (``imnet_feat``, with a zero bias) for a CUDA input in fp32 inference,
+  and not for a CPU input, a bf16 module, autograd on, a halo,
+  valid-extent masking, RDN's head or LIIF's bucketed decode. A CPU
+  tensor that says it is on the card (``_CardTensor``) drives the decision
+  here; the convs then run the plain version.
 - The plain slab path equals the NCHW path bit for bit here (within 1e-6
   is asked), and the weight slabs' layout and their cache.
 
@@ -35,6 +36,7 @@ import torch
 from tpu_diinn_torch.kernels import encoder_conv as ec
 from tpu_diinn_torch.nn.diinn import ImplicitDecoder
 from tpu_diinn_torch.nn.edsr import EDSRBaseline
+from tpu_diinn_torch.nn.liif import LIIF
 from tpu_diinn_torch.nn.masking import valid_extent
 from tpu_diinn_torch.nn.rdn import RDN
 
@@ -200,6 +202,63 @@ def test_dispatch_runs_the_stacked_lr_conv_once_on_the_slab_path(
     assert len(conv_calls) == 1
     assert got.shape == (2, 5, 6, 96) and got.is_contiguous()
     assert (got - want).abs().max().item() <= 1e-6
+
+
+# (what, LIIF kwargs, card input, grad, masking, slab convs)
+LIIF_DISPATCH = [
+    ("fp32", {}, True, False, False, 1),
+    ("cpu input", {}, False, False, False, 0),
+    ("bf16", {"dtype": torch.bfloat16}, True, False, False, 0),
+    ("grad", {}, True, True, False, 0),
+    ("masking", {}, True, False, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", LIIF_DISPATCH, ids=lambda c: c[0])
+def test_dispatch_runs_liif_feature_conv_on_the_slab_path_in_fp32_inference(
+        conv_calls, case):
+    """``LIIF.feat_conv`` (its ``imnet_feat``, 16 -> 32, no bias) takes the
+    slab path with a zero bias where ``engaged``; the result equals the
+    module's own conv."""
+    _, kw, card, grad, masked, n = case
+    net = LIIF(encoder_spec="rdn-tiny", hidden=(32, 32),
+               generator=torch.Generator().manual_seed(0), **kw)
+    feat = torch.randn((2, 5, 6, 16), generator=torch.Generator()
+                       .manual_seed(2))
+    scope = (valid_extent((5, 6), torch.tensor(4, dtype=torch.int32),
+                          torch.tensor(5, dtype=torch.int32))
+             if masked else torch.enable_grad() if grad else torch.no_grad())
+    with torch.no_grad(), scope:
+        got = net.feat_conv(_card(feat) if card else feat)
+        want = net.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert len(conv_calls) == n
+    assert got.shape == (2, 5, 6, 32)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-6
+
+
+def test_dispatch_liif_decodes_take_the_feature_conv_where_engaged(
+        conv_calls):
+    """A LIIF decode and a stripe each run the feature conv once on the
+    slab path for a card input; the bucketed decode (``decode_traced``)
+    keeps ``imnet_feat``."""
+    net = LIIF(encoder_spec="rdn-tiny", hidden=(32, 32),
+               generator=torch.Generator().manual_seed(0))
+    feat = _card(torch.randn((1, 5, 6, 16), generator=torch.Generator()
+                             .manual_seed(2)))
+    with torch.no_grad():
+        out = net.decode(feat, (11, 13), bsize=40)
+        assert len(conv_calls) == 1
+        net.decode_stripe(feat, (11, 13), 4, 5)
+        assert len(conv_calls) == 2
+        dev = torch.device("cpu")
+        per_corner = [tuple(torch.zeros(k, dtype=dt, device=dev)
+                            for k, dt in ((11, torch.long),
+                                          (11, torch.float32),
+                                          (13, torch.long),
+                                          (13, torch.float32)))] * 4
+        net.decode_traced(feat, per_corner, torch.ones(2), (11, 13), 40)
+    assert len(conv_calls) == 2
+    assert out.shape == (1, 11, 13, 3)
 
 
 # the slab path's plain version against the NCHW path (the reference

@@ -14,6 +14,19 @@ dense ops, outside any Pallas kernel).
 The corner index maps are float64 numpy functions of the two sizes, cast
 to float32 only at the end: in float32 the ties of integer scales round to
 the other side and shift whole rows or columns. NHWC at every method.
+
+In fp32 inference on the card (``kernels/encoder_conv.engaged``: a CUDA
+float32 input, autograd off, no valid-extent masking) ``imnet_feat`` is
+one launch of the encoder's implicit-GEMM conv, with a zero bias (layer
+0's bias stays in ``imnet_rel``); training, bf16, the bucketed eval
+(``decode_traced``) and the CPU keep ``nn/layers.Conv``.
+
+Spans (``train/profiling.py::span``): ``encoder`` around the encoder in
+``forward``; ``decoder`` around a decode, in it ``lr_conv`` (the
+``imnet_feat`` conv), ``decoder.prepare`` (the float64 index maps, the
+cell and their uploads) and ``decoder.window`` (one column chunk). Each
+chunk adds one to ``chunks`` and 4 x its queries to ``corner_queries``
+(``reset_counters`` sets both to 0).
 """
 
 from __future__ import annotations
@@ -25,11 +38,21 @@ import torch
 from torch import nn
 
 from tpu_diinn_torch.core import grids
+from tpu_diinn_torch.kernels import encoder_conv as ec
 from tpu_diinn_torch.nn.layers import Conv, Dense
 from tpu_diinn_torch.parallel.sharding import stripe_columns
+from tpu_diinn_torch.train.profiling import span
 
 _EPS_SHIFT = 1e-6
 _CLAMP = 1.0 - 1e-6
+
+chunks = 0
+corner_queries = 0
+
+
+def reset_counters() -> None:
+    global chunks, corner_queries
+    chunks = corner_queries = 0
 
 
 def _corner_axis_indices(n_in: int, n_out: int,
@@ -67,6 +90,9 @@ class LIIF(nn.Module):
         self.encoder = make_encoder(encoder_spec, **kw)
         c = self.encoder.out_dim
         self.imnet_feat = Conv(c, hidden[0], 3, use_bias=False, **kw)
+        # the slab conv's bias operand: imnet_feat has none
+        self.register_buffer("_imnet_feat_zero_bias",
+                             torch.zeros(hidden[0]), persistent=False)
         self.imnet_rel = Dense(2, hidden[0], **kw)
         self.imnet_cell = Dense(2, hidden[0], use_bias=False, **kw)
         dims = [*hidden, 3]
@@ -82,20 +108,25 @@ class LIIF(nn.Module):
         column chunks of ``bsize // H_out`` queries when ``bsize`` is
         set."""
         h_out, w_out = size
-        z, maps, cell = self._lookups(feat, size)
-        chunk = w_out if bsize is None else max(1, bsize // h_out)
-        outs = [self._blend(z, [(iy, ry, ix[lo:lo + chunk],
-                                 rx[lo:lo + chunk])
-                                for iy, ry, ix, rx in maps], cell)
-                for lo in range(0, w_out, chunk)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        with span("decoder"):
+            z = self.feat_conv(feat)
+            maps, cell = self._lookups(feat, size)
+            chunk = w_out if bsize is None else max(1, bsize // h_out)
+            outs = []
+            for lo in range(0, w_out, chunk):
+                with span("decoder.window"):
+                    outs.append(self._blend(
+                        z, [(iy, ry, ix[lo:lo + chunk], rx[lo:lo + chunk])
+                            for iy, ry, ix, rx in maps], cell))
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
     def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
                       col_start: int, stripe_w: int) -> torch.Tensor:
         """Decode the ``stripe_w``-wide column stripe at ``col_start``,
         clamped (columns past W_out repeat the last one): the unit of
         query sharding (``parallel/sharding.py``)."""
-        z, maps, cell = self._lookups(feat, size)
+        z = self.feat_conv(feat)
+        maps, cell = self._lookups(feat, size)
         cols = torch.from_numpy(stripe_columns(size[1], col_start,
                                                stripe_w)).to(feat.device)
         return self._blend(z, [(iy, ry, ix[cols], rx[cols])
@@ -117,29 +148,47 @@ class LIIF(nn.Module):
                 for lo in range(0, h_out, band)]
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
+    def feat_conv(self, feat: torch.Tensor) -> torch.Tensor:
+        """The first layer's feature conv z of NHWC ``feat``, NHWC: on the
+        slab conv where ``encoder_conv.engaged``, else ``imnet_feat``."""
+        with span("lr_conv"):
+            if ec.engaged(feat, self.imnet_feat.dtype):
+                w, b, slabs = ec.operands(
+                    self.imnet_feat, [self.imnet_feat.conv.weight],
+                    [self._imnet_feat_zero_bias])
+                z = ec.new_slab(feat, w.shape[0])
+                ec.conv(feat, w, b, z, slabs=slabs)
+                return z
+            return self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1)
+
     def _lookups(self, feat: torch.Tensor, size: Tuple[int, int]):
-        """(the first layer's feature conv z, per corner (row index, row
-        rel, column index, column rel) on the device, the cell)."""
+        """(per corner (row index, row rel, column index, column rel) on
+        the device, the cell)."""
         _, h_in, w_in, _ = feat.shape
         h_out, w_out = size
         dev = feat.device
-        z = self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        cell = torch.from_numpy(np.asarray(
-            [2.0 * h_in / h_out, 2.0 * w_in / w_out], np.float32)).to(dev)
-        maps = []
-        for vy, vx in _CORNERS:
-            iy, ry = _corner_axis_indices(h_in, h_out, vy)
-            ix, rx = _corner_axis_indices(w_in, w_out, vx)
-            maps.append(tuple(torch.from_numpy(a).to(dev)
-                              for a in (iy.astype(np.int64), ry,
-                                        ix.astype(np.int64), rx)))
-        return z, maps, cell
+        with span("decoder.prepare"):
+            cell = torch.from_numpy(np.asarray(
+                [2.0 * h_in / h_out, 2.0 * w_in / w_out], np.float32)).to(dev)
+            maps = []
+            for vy, vx in _CORNERS:
+                iy, ry = _corner_axis_indices(h_in, h_out, vy)
+                ix, rx = _corner_axis_indices(w_in, w_out, vx)
+                maps.append(tuple(torch.from_numpy(a).to(dev)
+                                  for a in (iy.astype(np.int64), ry,
+                                            ix.astype(np.int64), rx)))
+            return maps, cell
 
     def _blend(self, z: torch.Tensor, per_corner: List[tuple],
                cell: torch.Tensor) -> torch.Tensor:
         """Corner predictions and the area-weighted blend over per-corner
         (row index, row rel, column index, column rel) vectors."""
+        global chunks, corner_queries
         b = z.shape[0]
+        chunks += 1
+        corner_queries += 4 * b * len(per_corner[0][0]) * len(
+            per_corner[0][2])
         preds, areas = [], []
         for iy, ry, ix, rx in per_corner:
             q = z.index_select(1, iy).index_select(2, ix)
@@ -159,4 +208,6 @@ class LIIF(nn.Module):
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:
-        return self.decode(self.encoder(x), size, bsize)
+        with span("encoder"):
+            feat = self.encoder(x)
+        return self.decode(feat, size, bsize)

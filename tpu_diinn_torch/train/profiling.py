@@ -50,7 +50,10 @@ def span(name: str):
     ``decoder.window`` (one window of ``ImplicitDecoder.windows``)
     (``nn/diinn.py``); ``decoder.backward`` and
     ``decoder.backward.prepare`` (its buffers and slabs)
-    (``kernels/decoder_fused.py``)."""
+    (``kernels/decoder_fused.py``); in LIIF (``nn/liif.py``) ``encoder``,
+    ``decoder``, ``lr_conv`` (``imnet_feat``), ``decoder.prepare`` (the
+    corner index maps, the cell and their uploads) and ``decoder.window``
+    (one column chunk)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch.profiler.record_function(name)
