@@ -64,6 +64,18 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
    plain version's ms and cuDNN fp32's own on NCHW (``library_ms``), and
    the sums over a request (``encoder_conv_phase``); the build phase
    requires ``HGMMA`` in every instance of it;
+3d. liif_decoder: LIIF's query-MLP kernel (``kernels/liif_decoder``) on
+   the decode of one x4 and one x8 request of a seeded LIIF-RDN at the
+   published widths (seeded 192x256 features, ``eval_bsize`` 30000): every
+   chunk on the kernel (``fused_chunks / chunks`` 1, one launch a chunk),
+   within 1e-6 absolute (the benchmark cell's limit) of the torch path;
+   on the feature conv and index maps made once, the chunks' ms on the
+   kernel (CUDA events) and the kernel's device ms (``torch.profiler``)
+   against its 3xTF32 bound, and the same chunks' ms on the torch path
+   (``library_ms``: cuBLAS fp32 SGEMMs and the passes around them); the
+   whole decode's ms (CUDA events, the feature conv and the index maps
+   included) beside them; ptxas's registers and spills of the kernel
+   (``liif_decoder_phase``); the build phase requires ``HGMMA`` in it;
 4. slice, eval: the flagship benchmark evaluation through the benchmark
    CLI's ``main`` on the exact-shape route (``--eval_buckets 0``, as
    phases 4b and 6a; phase 10 runs the CLI's default, bucketed route)
@@ -121,8 +133,10 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       ``main`` of LIIF and MetaSR on ``results/{liif,metasr}_weights.npz``
       and of the bicubic baseline (``--bicubic_test``), all 36 metrics
       each against the committed JAX-CPU oracle at phase 4's bounds; no
-      decoder kernel runs; the samples are those phase 4 read through the
-      CLI's dataset path (the same images and scales), decoded once;
+      decoder kernel runs, and LIIF decodes every chunk on its query-MLP
+      kernel (``fused_chunks / chunks`` logged, 1); the samples are those
+      phase 4 read through the CLI's dataset path (the same images and
+      scales), decoded once;
    b. DIINN with the EDSR-baseline encoder (``BASELINE.json``
       ``configs[0]``: mode 3, hidden 4 x 256) on ``seeded_params``
       weights, Set5 at x2 and x3.14: both forward kernels launched, the
@@ -219,6 +233,8 @@ Phases, each ending in one flushed JSON line with its elapsed seconds:
       instances only;
    c. LIIF and MetaSR on Set5 against their exact-shape oracles at phase
       6a's bounds, with their program counts; no decoder kernel runs;
+      LIIF's query-MLP kernel launches in every LIIF program, each of its
+      launches accounted for by the warm-ups and the replays;
    d. each of 10a's programs replayed on its buffers and run eagerly on
       the same buffers: the three metrics bit-equal; one more replay
       under ``torch.profiler``, whose device records must count the
@@ -292,6 +308,8 @@ from tpu_diinn_torch.native import loader as native_loader
 from tpu_diinn_torch.parallel import launch, sharding
 from tpu_diinn_torch.kernels import decoder_fused as K
 from tpu_diinn_torch.kernels import encoder_conv as EC
+from tpu_diinn_torch.kernels import liif_decoder as LD
+from tpu_diinn_torch.nn import liif
 from tpu_diinn_torch.nn.rdn import RDN
 from tpu_diinn_torch.nn.registry import make_net
 from tpu_diinn_torch.train import flops, loop, profiling
@@ -334,6 +352,7 @@ REPLACES = {"decode_int_fwd": f"{_PALLAS}:732; {_PALLAS}:280",
 FWD = ("decode_int_fwd", "decode_window_fwd")
 BWD = ("decode_int_bwd", "decode_window_bwd")
 ENC_KEY = "encoder_conv"   # the encoder conv's launches in a phase's counts
+LIIF_KEY = LD.KEY     # LIIF's query-MLP kernel's launches, likewise
 KERNEL_TOL = 1e-4          # forward: max abs error
 BWD_TOL = 1e-4             # backward: max abs error / largest magnitude
 MARGIN = 1e-5              # relu pre-activation margin (phase 3b)
@@ -412,16 +431,19 @@ HOST_WAIT_MS: dict = {}    # phases 5b and 5d: the host's wait per step
 
 
 def reset_launches() -> None:
-    """Sets the launch counts to 0: the decoder wrappers' and the encoder
-    conv's."""
+    """Sets the launch counts to 0: the decoder wrappers', the encoder
+    conv's and LIIF's decode counters."""
     K.reset_launches()
     EC.reset_launches()
+    LD.reset_launches()
+    liif.reset_counters()
 
 
 def launch_counts() -> dict:
     """The launches since ``reset_launches``: the decoder's by wrapper key,
-    and the encoder conv's under ENC_KEY."""
-    return {**K.launches, ENC_KEY: EC.launches}
+    the encoder conv's under ENC_KEY and LIIF's query-MLP kernel's under
+    LIIF_KEY."""
+    return {**K.launches, ENC_KEY: EC.launches, LIIF_KEY: LD.launches}
 
 
 def decoder_ran(counts: dict) -> bool:
@@ -1688,10 +1710,14 @@ def eval_family(t, family: str) -> dict:
     counts = launch_counts()
     if decoder_ran(counts):
         raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
+    fused_share = liif.fused_chunks / liif.chunks if liif.chunks else None
+    if family == "liif" and fused_share != 1.0:
+        raise AssertionError(f"LIIF: {liif.fused_chunks} of {liif.chunks} "
+                             "chunks on the query-MLP kernel")
     deltas = hold_metrics(results, FAMILY_ORACLE.format(family))
     worst = max(deltas, key=deltas.get)
     phase(f"slice_eval_{family}", t, wall_seconds=round(wall, 3),
-          launches=counts, metrics=len(deltas),
+          launches=counts, liif_fused_share=fused_share, metrics=len(deltas),
           max_delta_vs_oracle=deltas[worst], max_delta_at=worst,
           max_delta_vs_tpu_v5e_log_info_only=max_delta(
               results, tpu_log_metrics(family)))
@@ -2791,9 +2817,10 @@ def bucketed_cli(args: list) -> tuple:
 
 
 def replay_launches(ev, counts: dict) -> dict:
-    """Each program's decoder launches a run, checked against ``counts``:
-    one eager warm-up and every replay of every program, nothing else."""
-    counts = {k: counts[k] for k in K.launches}
+    """Each program's decoder and LIIF query-MLP launches a run, checked
+    against ``counts``: one eager warm-up and every replay of every
+    program, nothing else."""
+    counts = {k: counts[k] for k in (*K.launches, LIIF_KEY)}
     want = {k: 0 for k in counts}
     per_program = {}
     for key, prog in ev._programs.items():
@@ -2894,7 +2921,9 @@ def eval_bucketed_bf16(t) -> dict:
 def eval_bucketed_family(t, family: str) -> dict:
     """Phase 10c: LIIF or MetaSR on Set5 at {3.14, 4, 8}, bucketed, fp32:
     the 9 metrics against the Set5 entries of the family's exact-shape
-    JAX-CPU oracle at phase 6a's bounds; no decoder kernel runs."""
+    JAX-CPU oracle at phase 6a's bounds; no decoder kernel runs; LIIF's
+    query-MLP kernel launches in every LIIF program, every launch counted
+    by the warm-ups and the replays (``replay_launches``)."""
     reset_launches()
     results, ev, wall, split, _ = bucketed_cli(
         ["--ckpt_path", FAMILY_WEIGHTS.format(family), "--device", "cuda",
@@ -2902,11 +2931,18 @@ def eval_bucketed_family(t, family: str) -> dict:
     counts = launch_counts()
     if decoder_ran(counts):
         raise AssertionError(f"{family}: a decoder kernel ran: {counts}")
+    programs = replay_launches(ev, counts)
+    liif_in = [k for k, p in programs.items()
+               if p["launches_a_run"].get(LIIF_KEY)]
+    if len(liif_in) != (ev.n_programs if family == "liif" else 0):
+        raise AssertionError(f"{family}: LIIF's kernel in {liif_in} of "
+                             f"{list(programs)}")
     deltas = hold_metrics(results, FAMILY_ORACLE.format(family), ("Set5",))
     worst = max(deltas, key=deltas.get)
     phase(f"slice_eval_bucketed_{family}", t, wall_seconds=round(wall, 3),
           split_seconds={k: round(v, 4) for k, v in split.items()},
-          n_programs=ev.n_programs, launches=counts, metrics=len(deltas),
+          n_programs=ev.n_programs, programs=programs, launches=counts,
+          metrics=len(deltas),
           max_delta_vs_oracle=deltas[worst], max_delta_at=worst)
     return counts
 
@@ -3269,6 +3305,92 @@ def encoder_conv_phase(dev, peaks, t) -> dict:
     return {"rows": rows, "request": total}
 
 
+# phase 3d: LIIF's query-MLP kernel on the decode of one request at each
+# scale (LR 192x256, the benchmark's request size)
+LIIF_SCALES = (4, 8)
+LIIF_BSIZE = 30000
+LIIF_TOL = 1e-6     # absolute: the benchmark cell's limit
+LIIF_SOURCE = "tpu_diinn_torch/csrc/liif_decoder.cu"
+LIIF_KERNEL = "liif_decoder::query_mlp_3xtf32_kernel"
+
+
+def liif_decoder_phase(dev, peaks, t) -> dict:
+    """Phase 3d: ``kernels/liif_decoder``'s kernel on the decode of one x4
+    and one x8 request (a seeded LIIF-RDN, seeded 192x256 features of 64
+    channels, ``LIIF_BSIZE``): every chunk on the kernel, one launch a
+    chunk, its output within LIIF_TOL of the torch path's (the kernel's
+    dispatch off). With the feature conv and the index maps made once,
+    the chunks' ms on the kernel (``ms``: CUDA events, 5 decodes after
+    one), the kernel's device ms a decode (``torch.profiler``), the 3xTF32
+    bound of its products, and the same chunks' ms on the torch path
+    (``library_ms``); the whole decode's ms (``decode_ms``: the feature
+    conv and the index maps included); the kernel's ptxas registers and
+    spills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_diinn_torch.nn.liif import LIIF
+    gen = torch.Generator().manual_seed(SEED)
+    net = LIIF(generator=gen).to(dev)
+    feat = torch.randn((1, *ENC_HW, 64), generator=gen).to(dev)
+    off = functools.partial(patched, LD, "engaged",
+                            lambda _: lambda *a, **k: False)
+    rows = []
+    for s in LIIF_SCALES:
+        size = (ENC_HW[0] * s, ENC_HW[1] * s)
+
+        def decode():
+            return net.decode(feat, size, LIIF_BSIZE)
+
+        with torch.inference_mode():
+            reset_launches()
+            got = decode()
+            torch.cuda.synchronize()
+            share = liif.fused_chunks / liif.chunks
+            chunks, launched = liif.chunks, LD.launches
+            with off():
+                want = decode()
+            gap = (got - want).abs().max().item()
+            if (share != 1.0 or launched != chunks
+                    or not (math.isfinite(gap) and gap <= LIIF_TOL)):
+                raise AssertionError(f"LIIF x{s}: fused share {share}, "
+                                     f"{launched} launches for {chunks} "
+                                     f"chunks, gap {gap} > {LIIF_TOL}")
+            decode_ms = time_ms(decode, 5)
+            z = net.feat_conv(feat)
+            lookups = net._lookups(feat, size)
+            with patched(LIIF, "feat_conv", lambda _: lambda *a: z), \
+                    patched(LIIF, "_lookups", lambda _: lambda *a: lookups):
+                ms = time_ms(decode, 5)
+                with off():
+                    lib_ms = time_ms(decode, 3)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        decode()
+                    torch.cuda.synchronize()
+        dev_ms = sum(getattr(e, "device_time_total", 0)
+                     for e in prof.key_averages()
+                     if "liif_decoder" in e.key) / 3 / 1e3
+        n_query = size[0] * size[1]
+        flop = 2.0 * 4 * 3 * 256 * 256 * n_query
+        nbytes = 4.0 * (feat.numel() * 4 + 3 * 256 * 256 + 3 * n_query)
+        bnd = bound(flop, nbytes, peaks)
+        rows.append({
+            "scale": s, "size": list(size), "chunks": chunks,
+            "launches": launched, "fused_share": share, "max_abs_gap": gap,
+            "ms": round(ms, 4),
+            "device_ms": round(dev_ms, 4) if dev_ms else None,
+            "bound_ms": round(bnd["bound_ms"], 4),
+            "bound_by": bnd["bound_by"], "library_ms": round(lib_ms, 4),
+            "decode_ms": round(decode_ms, 4),
+            "share_of_3xtf32_bound": (round(bnd["bound_ms"] / dev_ms, 4)
+                                      if dev_ms else None)})
+    del net, feat, got, want, z, lookups
+    torch.cuda.empty_cache()
+    regs = ptxas_by_kernel(build.build_info["liif_decoder"]["log"])
+    phase("liif_decoder", t, rows=rows, ptxas=regs)
+    return {"rows": rows, "ptxas": regs}
+
+
 def main(argv: list) -> int:
     if argv[:1] == ["--bf16-cpu-witness"] and len(argv) == 2:
         bf16_cpu_witness(argv[1])
@@ -3320,7 +3442,8 @@ def main(argv: list) -> int:
             need = {"decoder_fused": (("decode_fwd", ("HGMMA",)),),
                     "decoder_bwd": (("decode_bwd_chain", ("HMMA", "HGMMA")),
                                     ("wgrad", ("HMMA", "HGMMA"))),
-                    "encoder_conv": (("conv_implicit_gemm", ("HGMMA",)),)}
+                    "encoder_conv": (("conv_implicit_gemm", ("HGMMA",)),),
+                    "liif_decoder": (("query_mlp", ("HGMMA",)),)}
             for kern, ops in need[name]:
                 tc = [sum(v[op] for op in ops) for k, v in sass.items()
                       if k.startswith(kern)]
@@ -3330,7 +3453,8 @@ def main(argv: list) -> int:
                 hg = [v["HGMMA"] for k, v in sass.items()
                       if k.startswith(kern) and (k.endswith("Bf16>")
                                                  or "_bf16_kernel" in k)]
-                if name != "encoder_conv" and (not hg or min(hg) == 0):
+                if (name not in ("encoder_conv", "liif_decoder")
+                        and (not hg or min(hg) == 0)):
                     raise AssertionError(f"{kern}: a bf16 instance without "
                                          f"HGMMA: {sass}")
         phase("build", t, library=name,
@@ -3346,6 +3470,7 @@ def main(argv: list) -> int:
     train_kernels(dev, peaks, peak_bf16, t, checks)
     torch.cuda.empty_cache()
     enc = encoder_conv_phase(dev, peaks, time.perf_counter())
+    liif_dec = liif_decoder_phase(dev, peaks, time.perf_counter())
 
     # 4) and 5) the main paths, each with the launch counts set to 0 just
     # before it and read just after
@@ -3459,6 +3584,23 @@ def main(argv: list) -> int:
         "shape": "every RDN-B conv and the LR conv of a 192x256 request",
         "achieved_tflops": req["tflops_fp32_equivalent"],
         "shapes": enc["rows"]})
+    first = liif_dec["rows"][0]
+    kernels.append({
+        "name": LIIF_KEY, "route": "cuda", "source": LIIF_SOURCE,
+        "kernel": LIIF_KERNEL,
+        "replaces": "XLA dense ops (no Pallas kernel); cuBLAS fp32 SGEMMs "
+                    "and the torch passes around them on the card",
+        "dtype": "float32",
+        "launches": sum(c[LIIF_KEY] for c in by_path.values()),
+        "launches_by_path": {p: c[LIIF_KEY] for p, c in by_path.items()},
+        "max_abs_err": max(r["max_abs_gap"] for r in liif_dec["rows"]),
+        "ms": first["ms"], "device_ms": first["device_ms"],
+        "plain_ms": first["library_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"], "decode_ms": first["decode_ms"],
+        "shape": "the column chunks of the decode of one LIIF-RDN request, "
+                 "LR 192x256, at x4 (first) and x8",
+        "shapes": liif_dec["rows"]})
     phase("total", t_total)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

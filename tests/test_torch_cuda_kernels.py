@@ -874,3 +874,145 @@ def test_liif_fp32_predict_launches_the_conv_for_imnet_feat(monkeypatch):
         torch.cuda.synchronize()
     assert EC.launches == before + 149
     assert (got - want).abs().max().item() <= 1e-6
+
+
+# LIIF's query-MLP kernel (kernels/liif_decoder): the benchmark cell's
+# limit on the largest absolute gap against the plain reference
+LIIF_TOL = 1e-6
+
+
+def _liif_setup(monkeypatch, seed=5):
+    import json
+    from pathlib import Path
+
+    from tpu_diinn_torch.nn.liif import LIIF
+    dev = _device()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = LIIF(generator=torch.Generator().manual_seed(seed)).to(dev)
+    config = json.loads((Path(__file__).resolve().parents[1] / "perfbench"
+                         / "configs" / "liif-rdn.json").read_text())
+    return dev, net, config
+
+
+def _torch_path(monkeypatch, fn):
+    """fn() with the kernel's dispatch off (the torch path)."""
+    from tpu_diinn_torch.kernels import liif_decoder as ld
+    with monkeypatch.context() as m:
+        m.setattr(ld, "engaged", lambda *a, **k: False)
+        return fn()
+
+
+@pytest.mark.parametrize("b,scale,bsize", [
+    (1, 2, 30000),       # x2: one chunk of the whole width
+    (2, 3.14, 4000),     # x3.14, batch 2: chunks of 26 columns, 8 chunks
+    (1, 4, 7000),        # x4: chunks of 36 columns, the last of 4
+    (1, 8, 30000),       # x8: chunks of 78 columns, the last of 44
+])
+def test_liif_fused_decode_matches_the_torch_path_and_the_reference(
+        monkeypatch, b, scale, bsize):
+    """``LIIF.decode`` of a seeded 48x64 feature map (64 channels, the
+    published widths) on the kernel, one launch a chunk (``fused_chunks ==
+    chunks``, and the wrapper's ``launches``), within LIIF_TOL of the torch
+    path and of
+    ``perfbench/reference/liif.py``'s decode (one 580-wide layer 0 a query
+    and corner, plain float32)."""
+    from perfbench.reference import liif as R
+    from perfbench.reference.precision import Rounding
+    from tpu_diinn_torch.kernels import liif_decoder as ld
+    from tpu_diinn_torch.nn import liif
+    dev, net, config = _liif_setup(monkeypatch)
+    lr = (48, 64)
+    size = (round(lr[0] * scale), round(lr[1] * scale))
+    feat = torch.randn((b, *lr, 64), generator=torch.Generator()
+                       .manual_seed(6)).to(dev)
+    with torch.inference_mode():
+        liif.reset_counters()
+        ld.reset_launches()
+        got = net.decode(feat, size, bsize)
+        torch.cuda.synchronize()
+        chunk = max(1, bsize // size[0])
+        assert liif.chunks == liif.fused_chunks == ld.launches == -(
+            -size[1] // chunk)
+        assert liif.corner_queries == 4 * b * size[0] * size[1]
+        plain = _torch_path(monkeypatch, lambda: net.decode(feat, size,
+                                                            bsize))
+        params = {k: v.detach() for k, v in net.state_dict().items()}
+        want = R.decode(params, config, feat.permute(0, 3, 1, 2), size,
+                        Rounding("fp32"), block=1 << 17)
+    assert got.shape == (b, *size, 3) and got.is_contiguous()
+    assert (got - plain).abs().max().item() <= LIIF_TOL
+    assert (got - want).abs().max().item() <= LIIF_TOL
+
+
+def test_liif_fused_stripes_and_bucketed_decode_match_the_torch_path(
+        monkeypatch):
+    """``decode_stripe`` with a clamped last stripe (columns past the width
+    repeat the last) and ``decode_traced`` on the bucketed eval's padded
+    int32 vectors (a 151x201 decode on a 192x256 canvas, row bands of 117
+    rows) on the kernel, within LIIF_TOL of the torch path, one launch a
+    stripe and a band."""
+    import numpy as np
+
+    from tpu_diinn_torch.kernels import liif_decoder as ld
+    from tpu_diinn_torch.nn import liif
+    from tpu_diinn_torch.nn.liif import _CORNERS, _corner_axis_indices
+    dev, net, _ = _liif_setup(monkeypatch)
+    lr, size = (48, 64), (151, 201)
+    feat = torch.randn((1, *lr, 64), generator=torch.Generator()
+                       .manual_seed(7)).to(dev)
+    with torch.inference_mode():
+        liif.reset_counters()
+        ld.reset_launches()
+        got = net.decode_stripe(feat, size, 190, 16)
+        assert liif.fused_chunks == liif.chunks == ld.launches == 1
+        want = _torch_path(monkeypatch,
+                           lambda: net.decode_stripe(feat, size, 190, 16))
+        assert got.shape == (1, 151, 16, 3)
+        assert (got - want).abs().max().item() <= LIIF_TOL
+        assert torch.equal(got[:, :, 11:], got[:, :, 10:11].expand(
+            -1, -1, 5, -1))
+
+        pad = (192, 256)
+
+        def padded(a, n):
+            out = np.zeros(n, a.dtype)
+            out[:len(a)] = a
+            return torch.from_numpy(out).to(dev)
+        per_corner = []
+        for vy, vx in _CORNERS:
+            iy, ry = _corner_axis_indices(lr[0], size[0], vy)
+            ix, rx = _corner_axis_indices(lr[1], size[1], vx)
+            per_corner.append((padded(iy, pad[0]), padded(ry, pad[0]),
+                               padded(ix, pad[1]), padded(rx, pad[1])))
+        cell = torch.tensor([2.0 * lr[0] / size[0], 2.0 * lr[1] / size[1]],
+                            device=dev)
+        liif.reset_counters()
+        ld.reset_launches()
+        got = net.decode_traced(feat, per_corner, cell, pad, 30000)
+        assert liif.fused_chunks == liif.chunks == ld.launches == 2
+        want = _torch_path(monkeypatch, lambda: net.decode_traced(
+            feat, per_corner, cell, pad, 30000))
+    assert got.shape == (1, *pad, 3)
+    assert (got - want).abs().max().item() <= LIIF_TOL
+
+
+def test_liif_decode_chunk_counts_only_what_it_launches(monkeypatch):
+    """``decode_chunk`` of an empty chunk (no columns) returns its empty
+    output and launches nothing; a chunk of one column launches once."""
+    from tpu_diinn_torch.kernels import liif_decoder as ld
+    dev, net, _ = _liif_setup(monkeypatch)
+    z = torch.zeros((1, 4, 5, 256), device=dev)
+    small, slabs = ld.operands(net)
+    with torch.inference_mode():
+        for w in (0, 1):
+            vecs = [(torch.zeros(3, dtype=torch.int64, device=dev),
+                     torch.zeros(3, device=dev),
+                     torch.zeros(w, dtype=torch.int64, device=dev),
+                     torch.zeros(w, device=dev))] * 4
+            ld.reset_launches()
+            out = ld.decode_chunk(z, vecs, torch.ones(2, device=dev), small,
+                                  slabs)
+            torch.cuda.synchronize()
+            assert out.shape == (1, 3, w, 3)
+            assert ld.launches == w

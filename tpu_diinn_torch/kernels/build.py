@@ -40,6 +40,8 @@ SOURCES = {
                                        "hopper_chain.cuh")),
     "encoder_conv": ("encoder_conv.cu", ("encoder_conv.cuh",
                                          "hopper_chain.cuh")),
+    "liif_decoder": ("liif_decoder.cu", ("liif_decoder.cuh",
+                                         "hopper_chain.cuh")),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -21,12 +21,21 @@ one launch of the encoder's implicit-GEMM conv, with a zero bias (layer
 0's bias stays in ``imnet_rel``); training, bf16, the bucketed eval
 (``decode_traced``) and the CPU keep ``nn/layers.Conv``.
 
+In fp32 inference on the card (``kernels/liif_decoder.engaged``: a CUDA
+float32 ``z``, autograd off, a float32 imnet of four hidden layers of 256
+and three outputs) ``_blend`` decodes a chunk in one launch of
+``csrc/liif_decoder.cu`` (the gathers, the four corners' MLPs in 3xTF32
+and the area blend); training, bf16, other widths and the CPU keep the
+torch ops below. Either way each chunk is written into its columns (or a
+band into its rows) of one output.
+
 Spans (``train/profiling.py::span``): ``encoder`` around the encoder in
 ``forward``; ``decoder`` around a decode, in it ``lr_conv`` (the
 ``imnet_feat`` conv), ``decoder.prepare`` (the float64 index maps, the
 cell and their uploads) and ``decoder.window`` (one column chunk). Each
-chunk adds one to ``chunks`` and 4 x its queries to ``corner_queries``
-(``reset_counters`` sets both to 0).
+chunk adds one to ``chunks`` and 4 x its queries to ``corner_queries``,
+and one to ``fused_chunks`` where the kernel decoded it
+(``reset_counters`` sets all three to 0).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from torch import nn
 
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.kernels import encoder_conv as ec
+from tpu_diinn_torch.kernels import liif_decoder as ld
 from tpu_diinn_torch.nn.layers import Conv, Dense
 from tpu_diinn_torch.parallel.sharding import stripe_columns
 from tpu_diinn_torch.train.profiling import span
@@ -48,11 +58,18 @@ _CLAMP = 1.0 - 1e-6
 
 chunks = 0
 corner_queries = 0
+fused_chunks = 0
 
 
 def reset_counters() -> None:
-    global chunks, corner_queries
-    chunks = corner_queries = 0
+    global chunks, corner_queries, fused_chunks
+    chunks = corner_queries = fused_chunks = 0
+
+
+def _new_output(z: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The (B, h, w, 3) output of a decode of ``z``, to be written chunk by
+    chunk."""
+    return z.new_empty((z.shape[0], h, w, 3))
 
 
 def _corner_axis_indices(n_in: int, n_out: int,
@@ -86,6 +103,7 @@ class LIIF(nn.Module):
         super().__init__()
         from tpu_diinn_torch.nn.registry import make_encoder
         self.n_hidden = len(hidden)
+        self.hidden = tuple(hidden)
         kw = dict(generator=generator, dtype=dtype)
         self.encoder = make_encoder(encoder_spec, **kw)
         c = self.encoder.out_dim
@@ -106,19 +124,20 @@ class LIIF(nn.Module):
                bsize: Optional[int] = None) -> torch.Tensor:
         """Implicit decode of an LR feature grid to ``size``, in serial
         column chunks of ``bsize // H_out`` queries when ``bsize`` is
-        set."""
+        set, each written into its columns of one output."""
         h_out, w_out = size
         with span("decoder"):
             z = self.feat_conv(feat)
             maps, cell = self._lookups(feat, size)
             chunk = w_out if bsize is None else max(1, bsize // h_out)
-            outs = []
+            out = _new_output(z, h_out, w_out)
             for lo in range(0, w_out, chunk):
                 with span("decoder.window"):
-                    outs.append(self._blend(
-                        z, [(iy, ry, ix[lo:lo + chunk], rx[lo:lo + chunk])
-                            for iy, ry, ix, rx in maps], cell))
-            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+                    self._blend(z, [(iy, ry, ix[lo:lo + chunk],
+                                     rx[lo:lo + chunk])
+                                    for iy, ry, ix, rx in maps], cell,
+                                out[:, :, lo:lo + chunk])
+            return out
 
     def decode_stripe(self, feat: torch.Tensor, size: Tuple[int, int],
                       col_start: int, stripe_w: int) -> torch.Tensor:
@@ -130,7 +149,8 @@ class LIIF(nn.Module):
         cols = torch.from_numpy(stripe_columns(size[1], col_start,
                                                stripe_w)).to(feat.device)
         return self._blend(z, [(iy, ry, ix[cols], rx[cols])
-                               for iy, ry, ix, rx in maps], cell)
+                               for iy, ry, ix, rx in maps], cell,
+                           _new_output(z, size[0], stripe_w))
 
     def decode_traced(self, feat: torch.Tensor, per_corner: List[tuple],
                       cell: torch.Tensor, out_hw: Tuple[int, int],
@@ -139,14 +159,18 @@ class LIIF(nn.Module):
         rel) vectors and the (2,) ``cell`` given as device tensors, the
         unit of bucketed eval (``train/bucketed.py``): the work depends
         only on the padded ``out_hw``. Row bands of ``bsize // W_out``
-        rows."""
+        rows, each written into its rows of one output."""
         h_out, w_out = out_hw
         z = self.imnet_feat(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self._fused(z):
+            z = z.contiguous()
         band = max(1, bsize // max(w_out, 1))
-        outs = [self._blend(z, [(iy[lo:lo + band], ry[lo:lo + band], ix, rx)
-                                for iy, ry, ix, rx in per_corner], cell)
-                for lo in range(0, h_out, band)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        out = _new_output(z, h_out, w_out)
+        for lo in range(0, h_out, band):
+            self._blend(z, [(iy[lo:lo + band], ry[lo:lo + band], ix, rx)
+                            for iy, ry, ix, rx in per_corner], cell,
+                        out[:, lo:lo + band])
+        return out
 
     def feat_conv(self, feat: torch.Tensor) -> torch.Tensor:
         """The first layer's feature conv z of NHWC ``feat``, NHWC: on the
@@ -180,15 +204,28 @@ class LIIF(nn.Module):
                                             ix.astype(np.int64), rx)))
             return maps, cell
 
+    def _fused(self, z: torch.Tensor) -> bool:
+        """Whether ``_blend`` decodes ``z`` on the kernel."""
+        head = getattr(self, f"imnet_fc{self.n_hidden}").dense
+        return ld.engaged(z, self.imnet_rel.dtype, self.hidden,
+                          head.out_features)
+
     def _blend(self, z: torch.Tensor, per_corner: List[tuple],
-               cell: torch.Tensor) -> torch.Tensor:
+               cell: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """Corner predictions and the area-weighted blend over per-corner
-        (row index, row rel, column index, column rel) vectors."""
-        global chunks, corner_queries
+        (row index, row rel, column index, column rel) vectors, written
+        into ``out`` (B, h, w, 3), which it returns: one launch of the
+        kernel where ``_fused``, else the torch ops."""
+        global chunks, corner_queries, fused_chunks
         b = z.shape[0]
         chunks += 1
         corner_queries += 4 * b * len(per_corner[0][0]) * len(
             per_corner[0][2])
+        if self._fused(z):
+            fused_chunks += 1
+            small, slabs = ld.operands(self)
+            return ld.decode_chunk(z.contiguous(), per_corner, cell, small,
+                                   slabs, out)
         preds, areas = [], []
         for iy, ry, ix, rx in per_corner:
             q = z.index_select(1, iy).index_select(2, ix)
@@ -204,7 +241,8 @@ class LIIF(nn.Module):
             areas.append(torch.abs(rel[..., 0] * rel[..., 1]) + 1e-9)
         areas = areas[::-1]           # the diagonal area swap
         tot = sum(areas)
-        return sum(p * (a / tot)[..., None] for p, a in zip(preds, areas))
+        return out.copy_(sum(p * (a / tot)[..., None]
+                             for p, a in zip(preds, areas)))
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 bsize: Optional[int] = None) -> torch.Tensor:

@@ -31,9 +31,10 @@ allocates from one shared memory pool, since they replay one at a time.
 Per image: host prep in numpy, ``copy_`` into the static buffers,
 ``replay()``, one ``.tolist()`` of the three metrics. A failed capture
 raises; nothing falls back to eager. The wrappers of
-``kernels/decoder_fused.py`` count a launch when they are called, which
-happens at capture only: each graph's launches counted there are taken
-back and added at every replay instead. On the CPU the same program
+``kernels/decoder_fused.py`` and ``kernels/liif_decoder.py`` count a launch
+when they are called, which happens at capture only: each graph's launches
+counted there are taken back and added at every replay instead
+(``_launch_counts``). On the CPU the same program
 function runs eagerly for every image.
 
 The graphs hold pointers to the net's weights: build a ``BucketedEval``
@@ -53,6 +54,7 @@ import torch
 from tpu_diinn_torch.core import grids
 from tpu_diinn_torch.core.resize import resize_by_scale_size, resize_matrix
 from tpu_diinn_torch.kernels import decoder_fused as kern
+from tpu_diinn_torch.kernels import liif_decoder as ld
 from tpu_diinn_torch.nn import masking
 from tpu_diinn_torch.nn.diinn import DIINN
 from tpu_diinn_torch.nn.liif import LIIF, _CORNERS, _corner_axis_indices
@@ -109,6 +111,21 @@ def _syn_traced(out_pad: Tuple[int, int], in_pad: Tuple[int, int],
     shape = (h_pad, w_pad)
     return torch.stack([ry[:, None].expand(shape), rx[None, :].expand(shape),
                         ratio.expand(shape)], dim=-1)
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The kernel wrappers' launch counts: the decoder's by wrapper key,
+    LIIF's query-MLP kernel's under ``ld.KEY``."""
+    return {**kern.launches, ld.KEY: ld.launches}
+
+
+def _add_launches(counts: Dict[str, int]) -> None:
+    """``counts`` (keys of ``_launch_counts``) added to the wrappers'."""
+    for k, n in counts.items():
+        if k == ld.KEY:
+            ld.launches += n
+        else:
+            kern.launches[k] += n
 
 
 @dataclasses.dataclass
@@ -218,13 +235,14 @@ class BucketedEval:
         with torch.cuda.stream(side):
             prog.fn(prog.bufs)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(kern.launches)
+        before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
             prog.out = prog.fn(prog.bufs)
-        prog.launches = {k: n - before[k] for k, n in kern.launches.items()
+        prog.launches = {k: n - before[k]
+                         for k, n in _launch_counts().items()
                          if n != before[k]}
-        kern.launches.update(before)
+        _add_launches({k: -n for k, n in prog.launches.items()})
         prog.graph = graph
 
     @torch.inference_mode()
@@ -239,8 +257,7 @@ class BucketedEval:
         if prog.graph is None:
             return prog.fn(prog.bufs)
         prog.graph.replay()
-        for k, n in prog.launches.items():
-            kern.launches[k] += n
+        _add_launches(prog.launches)
         return prog.out.clone()
 
     @torch.inference_mode()
